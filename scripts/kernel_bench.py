@@ -1,81 +1,128 @@
-"""Focused REASSIGN-kernel micro-bench: one I=2 bucket, production cost.
+"""REASSIGN sampler micro-bench: the fused kernel against the XLA scan.
 
-Times ONLY the fused Pallas kernel on the dominant bucket shape of the
-production bench (I=2, R=224, 5000 iters x 6 chains) so kernel variants
-can be compared without paying the full bench.py catalog compile.
+Times one bucket of E events at the reference's stock sampler cost
+(5000 iterations x 6 chains, burn-in 500, lag 10) with each backend, in
+turns (xla, kernel, kernel, xla), on the first accelerator; compilation
+and a warm-up run stay outside the timed window.  Fails when JAX finds
+no GPU.
 
-Usage: python scripts/kernel_bench.py [num_events] [algorithm]
-       python scripts/kernel_bench.py [num_events] --paired
-  (--paired times the production paired-end bucket shape: fragment-
-   length-probability weights, classes~128, the e2e-paired fixture's
-   150 pairs/event at read_len 40, mean 250 sd 15)
-Env ablations (read by sampler/pallas_kernel.py at import):
-  MISO_PALLAS_NO_PRNG=1   constant-uniform chain (PRNG share)
-  MISO_PALLAS_NO_RECORD=1 no sample staging (record share)
-  MISO_PALLAS_PRNG32=1    23-bit Gibbs uniforms (default is 16-bit)
+Usage: python scripts/kernel_bench.py [--events E] [--iso 2 3] [--reads R]
+       python scripts/kernel_bench.py --sweep   (kernel block shapes only)
+       python scripts/kernel_bench.py --e2e [--reps N]
+  (--e2e: the `miso --run` engine over chip_smoke.py's 10k-event catalog
+   with each sampler, .miso tree and --summary-only, warm, in alternating
+   turns)
 """
+import argparse
+import itertools
+import json
 import os
 import sys
 import time
 
 import numpy as np
 
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+
+
+def timed(fn, reps=1):
+    """Best wall time of `reps` runs of fn(), each ending in
+    block_until_ready; fn() runs once untimed first (compile, warm-up)."""
+    import jax
+    jax.block_until_ready(fn())
+    best = float("inf")
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        jax.block_until_ready(fn())
+        best = min(best, time.perf_counter() - t0)
+    return best
+
 
 def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--events", type=int, default=2048)
+    ap.add_argument("--iso", type=int, nargs="+", default=[2, 3])
+    ap.add_argument("--reads", type=int, default=224)
+    ap.add_argument("--sweep", action="store_true")
+    ap.add_argument("--e2e", action="store_true")
+    ap.add_argument("--reps", type=int, default=3)
+    args = ap.parse_args()
+    if args.e2e:
+        return e2e(args.reps)
+
     import jax
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.join(os.path.dirname(os.path.dirname(
-                          os.path.abspath(__file__))), ".jax_cache"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1)
-    from miso_tpu.core.events import compile_single_end, pad_events
-    from miso_tpu.core.gene import make_gene
-    from miso_tpu.core.simulate import simulate_reads
-    from miso_tpu.sampler.mcmc import EventBatch, SamplerConfig
-    from miso_tpu.sampler.pallas_kernel import run_batch_pallas
+    from miso_jax.pipeline import enable_compilation_cache
+    from miso_jax.sampler.mcmc import SamplerConfig, run_batch
+    from miso_jax.sampler.pallas_kernel import run_batch_pallas
+    from miso_jax.testing import sampler_batch
 
-    paired = "--paired" in sys.argv
-    if paired:
-        sys.argv.remove("--paired")
-    E = int(sys.argv[1]) if len(sys.argv) > 1 else 1024
-    rng = np.random.default_rng(0)
-    protos = []
-    if paired:
-        from miso_tpu.core.events import compile_paired_end
-        from miso_tpu.core.simulate import simulate_paired_reads
-        g = make_gene([600, 100, 600], [[1, 2, 3], [1, 3]])
-        for _ in range(8):
-            psi = rng.dirichlet(np.ones(2))
-            _, pos, cig = simulate_paired_reads(
-                g, psi, 150, 40, 250.0, 15.0 ** 2, rng=rng)
-            protos.append(compile_paired_end(
-                g, pos, cig, read_len=40, mean_frag_len=250.0,
-                frag_variance=15.0 ** 2))
-    else:
-        g = make_gene([100, 50, 100], [[1, 2, 3], [1, 3]])
-        for _ in range(8):
-            psi = rng.dirichlet(np.ones(2))
-            _, pos, cig = simulate_reads(g, psi, 200, 25, rng)
-            protos.append(compile_single_end(g, pos, cig, read_len=25))
-    events = [protos[i % len(protos)] for i in range(E)]
-    pad = pad_events(events, pad_iso=2)
-    batch = EventBatch(**{k: np.asarray(v) for k, v in pad.items()})
+    dev = jax.devices()[0]
+    if dev.platform != "gpu":
+        sys.exit("kernel_bench: no GPU found (platform %r)" % dev.platform)
+    enable_compilation_cache()
     cfg = SamplerConfig(iters=5000, burn_in=500, lag=10, chains=6)
-
     key = jax.random.PRNGKey(0)
-    t0 = time.perf_counter()
-    np.asarray(run_batch_pallas(key, batch, cfg).accepted)
-    print("compile+run: %.2fs  (C pad = %d, R pad = %d)"
-          % (time.perf_counter() - t0, batch.weights.shape[1],
-             batch.read_w.shape[1]))
-    dt = float("inf")
-    for rep in range(5):
-        t0 = time.perf_counter()
-        res = run_batch_pallas(jax.random.PRNGKey(1 + rep), batch, cfg)
-        np.asarray(res.accepted)
-        dt = min(dt, time.perf_counter() - t0)
-    flags = {k: v for k, v in os.environ.items() if k.startswith("MISO_")}
-    print("kernel: %d events in %.3fs = %.0f events/s  %s"
-          % (E, dt, E / dt, flags))
+    for I in args.iso:
+        batch = jax.device_put(sampler_batch(args.events, I, args.reads))
+        shape = {"E": args.events, "I": I, "R": args.reads}
+        if args.sweep:
+            shapes = list(itertools.product((32, 64, 128), (1, 2, 4), (32,)))
+            shapes += [(64, 2, 16), (64, 2, 64), (32, 1, 64)]
+            for lanes, warps, chunk in shapes:
+                t = timed(lambda: run_batch_pallas(
+                    key, batch, cfg, max_lanes=lanes, num_warps=warps,
+                    max_chunk=chunk).psi_samples)
+                print(json.dumps(dict(shape, lanes=lanes, warps=warps,
+                                      chunk=chunk, seconds=t)), flush=True)
+            continue
+        xla = lambda: run_batch(key, batch, cfg).psi_samples  # noqa: E731
+        ker = lambda: run_batch_pallas(  # noqa: E731
+            key, batch, cfg).psi_samples
+        times = {"xla": [], "kernel": []}
+        for name in ("xla", "kernel", "kernel", "xla"):
+            times[name].append(timed(xla if name == "xla" else ker))
+        # same events, different random streams: posterior means agree
+        # statistically
+        mx = np.asarray(xla()).mean(axis=(1, 2))
+        mk = np.asarray(ker()).mean(axis=(1, 2))
+        print(json.dumps(dict(shape, xla_s=times["xla"],
+                              kernel_s=times["kernel"],
+                              max_abs_mean_diff=float(np.abs(mx - mk).max()),
+                              device=dev.device_kind)), flush=True)
+
+
+def e2e(reps):
+    """Warm `miso --run` wall-clock per sampler and output mode; turns
+    run xla, pallas, pallas, xla, ... so drift hits both alike."""
+    import shutil
+
+    import jax
+    import chip_smoke as cs
+
+    if jax.devices()[0].platform != "gpu":
+        sys.exit("kernel_bench: no GPU found")
+    from miso_jax.pipeline import enable_compilation_cache
+    enable_compilation_cache()
+    shutil.rmtree(cs.WORK, ignore_errors=True)
+    os.makedirs(cs.WORK)
+    se, _ = cs.build_catalogs(paired=False)
+    out = os.path.join(cs.WORK, "out")
+    for summary_only in (False, True):         # compile both backends
+        for backend in ("xla", "pallas"):
+            t, _ = cs.engine_run(se, out, backend, summary_only)
+            print(json.dumps({"summary_only": summary_only,
+                              "backend": backend, "cold_s": t}), flush=True)
+    order = [("xla", "pallas")[(i + 1) // 2 % 2] for i in range(2 * reps)]
+    for summary_only in (False, True):
+        times = {"xla": [], "pallas": []}
+        for backend in order:
+            times[backend].append(
+                cs.engine_run(se, out, backend, summary_only)[0])
+        print(json.dumps({"summary_only": summary_only, "order": order,
+                          **times, "device": jax.devices()[0].device_kind}),
+              flush=True)
+    shutil.rmtree(cs.WORK, ignore_errors=True)
 
 
 if __name__ == "__main__":

@@ -1,18 +1,18 @@
 """Hermetic multi-device scaling curve for event-data parallelism.
 
-Two measurements on a virtual 8-device CPU mesh (no TPU pod needed):
+Two measurements on a virtual 8-device CPU mesh (no multi-GPU host needed):
 
 1. SHARDING OVERHEAD: the same E-event catalog run through
    `run_batch_sharded` on 1/2/4/8-device meshes.  The event axis has no
    cross-device collectives in the run path, so wall-clock must stay
    ~flat as the mesh grows (all virtual devices share this host's
-   cores; a real pod gives each shard its own chip).  Any slope here
-   would be real overhead (resharding, collectives, dispatch) that a
-   pod would also pay.
+   cores; a multi-GPU host gives each shard its own card).  Any slope
+   here would be real overhead (resharding, collectives, dispatch) that
+   a multi-GPU host would also pay.
 
-2. PER-SHARD SCALING: the per-device program of an N-chip pod member is
+2. PER-SHARD SCALING: the per-device program of an N-device mesh is
    the single-device sampler on E/N events.  T(E)/T(E/N) on ONE device
-   is therefore the pod's expected relative throughput at N chips --
+   is therefore the mesh's expected relative throughput at N devices --
    valid precisely because (1) shows the sharded program adds nothing
    on top.  Expect ~N (compute scales linearly in the event axis).
 
@@ -31,10 +31,10 @@ os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
 
 def build_batch(E, rng, reads=200):
-    from miso_tpu.core.events import compile_single_end, pad_events
-    from miso_tpu.core.gene import make_gene
-    from miso_tpu.core.simulate import simulate_reads
-    from miso_tpu.sampler.mcmc import EventBatch
+    from miso_jax.core.events import compile_single_end, pad_events
+    from miso_jax.core.gene import make_gene
+    from miso_jax.core.simulate import simulate_reads
+    from miso_jax.sampler.mcmc import EventBatch
 
     g = make_gene([100, 50, 100], [[1, 2, 3], [1, 3]])
     protos = []
@@ -63,8 +63,8 @@ def main():
     jax.config.update("jax_num_cpu_devices", 8)
     from jax.sharding import Mesh
 
-    from miso_tpu.parallel.mesh import run_batch_sharded
-    from miso_tpu.sampler.mcmc import SamplerConfig, run_batch
+    from miso_jax.parallel.mesh import run_batch_sharded
+    from miso_jax.sampler.mcmc import SamplerConfig, run_batch
 
     E = int(sys.argv[1]) if len(sys.argv) > 1 else 1024
     iters = int(sys.argv[2]) if len(sys.argv) > 2 else 400
@@ -100,7 +100,7 @@ def main():
 
         dt = timed(run)
         t_full = t_full or dt
-        print("  shard E/%d=%d  %.3fs  -> pod-relative throughput x%.2f"
+        print("  shard E/%d=%d  %.3fs  -> mesh-relative throughput x%.2f"
               % (n, E // n, dt, t_full / dt))
 
 

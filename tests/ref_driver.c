@@ -1,10 +1,10 @@
 /* Parity driver for the reference MISO C engine (libsplicing).
  *
  * Our framework's acceptance criterion is statistical equivalence with
- * the reference implementation (BASELINE.json).  This driver runs the
+ * the reference implementation (ROADMAP.md).  This driver runs the
  * UNMODIFIED reference engine (built from /root/reference/pysplicing by
  * tests/refparity.py) on arbitrary (gff, reads) inputs so the test
- * suite can compare miso_tpu posteriors against reference posteriors on
+ * suite can compare miso_jax posteriors against reference posteriors on
  * identical data -- a live oracle instead of the stale shipped
  * fixtures (which predate the fastmiso C engine; see docs/PARITY.md).
  *

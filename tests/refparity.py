@@ -1,7 +1,7 @@
 """Live reference-engine oracle: build and drive the UNMODIFIED
 reference MISO C engine (libsplicing) for statistical-parity tests.
 
-The acceptance criterion (BASELINE.json) is that miso_tpu matches
+The acceptance criterion (ROADMAP.md) is that miso_jax matches
 reference MISO on the shipped test data.  The shipped `.miso` fixtures
 under sashimi_plot/test-data/miso-data were generated by the pre-fastmiso
 Python sampler (iters=2000/burn_in=200/lag=5 are not the modern defaults,
@@ -31,7 +31,7 @@ _DRIVER_SRC = os.path.join(os.path.dirname(__file__), "ref_driver.c")
 def _build_dir() -> str:
     return os.environ.get(
         "MISO_REFBUILD_DIR",
-        os.path.join(os.path.expanduser("~"), ".cache", "miso_tpu",
+        os.path.join(os.path.expanduser("~"), ".cache", "miso_jax",
                      "refbuild"))
 
 

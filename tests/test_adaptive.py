@@ -4,12 +4,12 @@ import numpy as np
 
 import jax
 
-from miso_tpu.core.events import compile_single_end, pad_events
-from miso_tpu.core.gene import make_gene
-from miso_tpu.core.simulate import simulate_reads
-from miso_tpu.sampler.mcmc import (EventBatch, SamplerConfig, run_batch,
+from miso_jax.core.events import compile_single_end, pad_events
+from miso_jax.core.gene import make_gene
+from miso_jax.core.simulate import simulate_reads
+from miso_jax.sampler.mcmc import (EventBatch, SamplerConfig, run_batch,
                                    run_batch_convergent)
-from miso_tpu.stats.rhat import batch_rhat, extended_iterations, rhat
+from miso_jax.stats.rhat import batch_rhat, extended_iterations, rhat
 
 
 def _events(n=3, seed=0):
@@ -76,8 +76,8 @@ def test_given_start():
 def test_linear_start_pipeline():
     """MISO_START_LINEAR: NNLS-seeded chains through the pipeline."""
     import dataclasses
-    from miso_tpu.core.assignment import linear_start_psi
-    from miso_tpu.pipeline import RunConfig, run_events
+    from miso_jax.core.assignment import linear_start_psi
+    from miso_jax.pipeline import RunConfig, run_events
 
     evs = _events(2, seed=11)
     expr = linear_start_psi(evs[0], 25)
@@ -93,7 +93,7 @@ def test_linear_start_pipeline():
 def test_convergent_extension_is_bucketed():
     """An impossible threshold forces one extension round for every
     event; continuation batches are padded to power-of-two event counts
-    so compile shapes stay bounded (remote-TPU compile cost)."""
+    so compile shapes stay bounded (each new shape is a compile)."""
     evs = _events(5, seed=7)  # 5 -> continuation rounds pad to 8
     batch = EventBatch(**{k: np.asarray(v)
                           for k, v in pad_events(evs).items()})
@@ -112,7 +112,7 @@ def test_convergent_extension_is_bucketed():
 def test_convergent_pipeline_records_schedule(tmp_path):
     """`miso --run --convergent`: per-event final schedule lands in the
     .miso header (iters=/burn_in=)."""
-    from miso_tpu.pipeline import (RunConfig, run_events,
+    from miso_jax.pipeline import (RunConfig, run_events,
                                    write_event_results)
 
     evs = _events(3, seed=9)

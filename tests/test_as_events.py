@@ -3,12 +3,12 @@ import numpy as np
 
 import jax
 
-from miso_tpu.core.as_events import (MISOEvents, TwoIsoEvent,
+from miso_jax.core.as_events import (MISOEvents, TwoIsoEvent,
                                      parse_event_information,
                                      se_event_to_gene,
                                      tandem_utr_event_to_gene)
-from miso_tpu.core.events import pad_events, two_iso_event_from_counts
-from miso_tpu.sampler.mcmc import EventBatch, SamplerConfig, run_batch
+from miso_jax.core.events import pad_events, two_iso_event_from_counts
+from miso_jax.sampler.mcmc import EventBatch, SamplerConfig, run_batch
 
 
 def test_parse_se_event_name():
@@ -60,7 +60,7 @@ def test_events_to_genes_and_sampler():
 def test_load_event_counts_se(tmp_path):
     """SE counts file -> events with inc/exc/common summaries
     (as_events.py:420-441)."""
-    from miso_tpu.core.as_events import load_event_counts
+    from miso_jax.core.as_events import load_event_counts
     p = tmp_path / "se_counts.txt"
     p.write_text(
         "chr1:1:100:+;chr1:200:249:+;chr1:300:399:+\t10;5;8;3;4;7\n"
@@ -78,7 +78,7 @@ def test_load_event_counts_se(tmp_path):
 def test_load_afe_ale_events(tmp_path):
     """AFE events: structure side-table + 4-count rows + voting filter +
     gene construction (as_events.py:343-504, Gene.py:1086-1127)."""
-    from miso_tpu.core.as_events import load_event_counts
+    from miso_jax.core.as_events import load_event_counts
     info = tmp_path / "afe_info.txt"
     info.write_text(
         "evA\tchr1:100:199:+,chr1:300:349:+\tchr1:500:599:+\n"
@@ -101,7 +101,7 @@ def test_load_afe_ale_events(tmp_path):
 
 
 def test_load_event_counts_ri_and_tandem(tmp_path):
-    from miso_tpu.core.as_events import load_event_counts
+    from miso_jax.core.as_events import load_event_counts
     ri = tmp_path / "ri.txt"
     ri.write_text("chr1:1:100:+;chr1:101:200:+;chr1:201:300:+\t6;9;4;3\n")
     evs = load_event_counts(str(ri), "RI")

@@ -1,12 +1,12 @@
 """Assignment-matrix, NNLS deconvolution, and complexity tests."""
 import numpy as np
 
-from miso_tpu.core.assignment import (assignment_matrix, gene_complexity,
+from miso_jax.core.assignment import (assignment_matrix, gene_complexity,
                                       local_cigar, nnls,
                                       norm_assignment_matrix, solve_gene)
-from miso_tpu.core.gene import make_gene
-from miso_tpu.core.matching import match_iso
-from miso_tpu.core.simulate import simulate_reads
+from miso_jax.core.gene import make_gene
+from miso_jax.core.matching import match_iso
+from miso_jax.core.simulate import simulate_reads
 
 
 def two_iso_gene():
@@ -57,7 +57,7 @@ def test_assignment_matrix_consistent_with_matcher():
         key = tuple((A[:, c] > 0).astype(int))
         support_weight[key] = support_weight.get(key, 0) + A[:, c].max()
     # brute-force: use per-isoform local cigars at every genomic position
-    from miso_tpu.core.assignment import local_cigar
+    from miso_jax.core.assignment import local_cigar
     brute = {}
     lo, hi = g.genomic_span()
     for gpos in range(lo, hi - rl + 2):
@@ -90,11 +90,11 @@ def test_complexity_finite():
 
 
 def test_paired_assignment_and_solve():
-    from miso_tpu.core.assignment import (gene_complexity_paired,
+    from miso_jax.core.assignment import (gene_complexity_paired,
                                           paired_assignment_matrix,
                                           solve_gene_paired)
-    from miso_tpu.core.fragments import normal_fragment
-    from miso_tpu.core.simulate import simulate_paired_reads
+    from miso_jax.core.fragments import normal_fragment
+    from miso_jax.core.simulate import simulate_paired_reads
 
     g = make_gene([300, 100, 300], [[1, 2, 3], [1, 3]])
     frag_prob, frag_start = normal_fragment(150.0, 64.0, 3.0, 30)
@@ -124,8 +124,8 @@ def test_paired_assignment_matrix_matches_brute_force():
     length, start) generation event (assignment.c:381-611 semantics):
     signatures keyed by (pos1, cigar1, pos2, cigar2), per-isoform
     fragment-probability sums, support-pattern collapse."""
-    from miso_tpu.core.assignment import paired_assignment_matrix
-    from miso_tpu.core.fragments import normal_fragment
+    from miso_jax.core.assignment import paired_assignment_matrix
+    from miso_jax.core.fragments import normal_fragment
 
     g = make_gene([60, 25, 40, 50], [[1, 2, 3, 4], [1, 3, 4], [1, 4]])
     rl = 12

@@ -12,7 +12,7 @@ import zlib
 import numpy as np
 import pytest
 
-from miso_tpu.io.sam import AlignedRead, BaiIndex, IndexedBamReader, write_bam
+from miso_jax.io.sam import AlignedRead, BaiIndex, IndexedBamReader, write_bam
 
 
 @pytest.fixture()
@@ -190,7 +190,7 @@ def test_record_field_overrun_raises(good_bam, tmp_path):
         _consume(p)
     os.environ["MISO_NO_NATIVE"] = "1"
     try:
-        import miso_tpu.native as nat
+        import miso_jax.native as nat
         old = (nat._LIB, nat._TRIED)
         nat._LIB, nat._TRIED = None, False
         with pytest.raises(ValueError):
@@ -235,7 +235,7 @@ def test_blocks_run_matches_block_at(tmp_path):
     starting offset and window size (io/sam.py blocks_run)."""
     import numpy as np
 
-    from miso_tpu.io.sam import AlignedRead, _BgzfStream, write_bam
+    from miso_jax.io.sam import AlignedRead, _BgzfStream, write_bam
 
     reads = [AlignedRead(qname="r%d" % i, flag=0, rname="chr1",
                          pos=i * 7, mapq=255, cigar_str="36M", rlen=36)

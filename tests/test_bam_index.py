@@ -11,14 +11,14 @@ import os
 import numpy as np
 import pytest
 
-from miso_tpu.io.sam import (BaiIndex, BamReader, IndexedBamReader,
+from miso_jax.io.sam import (BaiIndex, BamReader, IndexedBamReader,
                              reg2bin, reg2bins)
 
 
 @pytest.fixture(scope="module")
 def big_bam(tmp_path_factory):
     """A multi-chromosome, multi-block BAM (~50k reads)."""
-    from miso_tpu.testing import make_se_catalog, simulate_catalog_bam
+    from miso_jax.testing import make_se_catalog, simulate_catalog_bam
 
     d = tmp_path_factory.mktemp("bigbam")
     rng = np.random.default_rng(11)
@@ -100,7 +100,7 @@ def test_region_fetch_is_partial(big_bam):
 
 
 def test_stale_bai_is_rebuilt(tmp_path):
-    from miso_tpu.testing import make_se_catalog, simulate_catalog_bam
+    from miso_jax.testing import make_se_catalog, simulate_catalog_bam
 
     rng = np.random.default_rng(3)
     genes, _, psi = make_se_catalog(5, rng)
@@ -127,7 +127,7 @@ def test_atp2b1_fixture_fetch():
         pytest.skip("reference fixtures not mounted")
     import tempfile
 
-    from miso_tpu.io.sam import sam_to_bam
+    from miso_jax.io.sam import sam_to_bam
 
     with tempfile.TemporaryDirectory() as d:
         bam = os.path.join(d, "a.bam")
@@ -143,8 +143,8 @@ def test_atp2b1_fixture_fetch():
 def test_native_scanner_matches_python_decoder(big_bam):
     """The native columnar scanner and the Python record decoder produce
     identical reads over the whole file."""
-    from miso_tpu.io.sam import _decode_bam_record
-    from miso_tpu import native
+    from miso_jax.io.sam import _decode_bam_record
+    from miso_jax import native
     if native.load() is None:
         pytest.skip("native library unavailable")
     reader = IndexedBamReader(big_bam)
@@ -160,7 +160,7 @@ def test_native_index_matches_python_index(big_bam):
     """Native (vectorized window) and Python (per-record) index builds
     encode byte-identically."""
     import io
-    from miso_tpu import native
+    from miso_jax import native
     if native.load() is None:
         pytest.skip("native library unavailable")
     reader = IndexedBamReader(big_bam)
@@ -175,7 +175,7 @@ def test_native_index_matches_python_index(big_bam):
 def test_native_scan_batches_small_windows(big_bam):
     """Records crossing window boundaries carry over correctly: tiny
     windows give the same stream as one big window."""
-    from miso_tpu import native
+    from miso_jax import native
     if native.load() is None:
         pytest.skip("native library unavailable")
     reader = IndexedBamReader(big_bam)
@@ -194,8 +194,8 @@ def test_native_scan_batches_small_windows(big_bam):
 
 def test_fetch_columnar_matches_parse_reads(big_bam):
     """The columnar single-end ingest equals fetch + sam_parse_reads."""
-    from miso_tpu.io.sam import sam_parse_reads
-    from miso_tpu import native
+    from miso_jax.io.sam import sam_parse_reads
+    from miso_jax import native
     if native.load() is None:
         pytest.skip("native library unavailable")
     reader = IndexedBamReader(big_bam)
@@ -215,7 +215,7 @@ def test_fetch_skips_placed_unmapped(tmp_path):
     mapped mate, CIGAR '*') must not surface from region fetches, as in
     the in-memory reader's _RegionIndex -- they would otherwise count
     toward the --prefilter coverage threshold."""
-    from miso_tpu.io.sam import AlignedRead, write_bam
+    from miso_jax.io.sam import AlignedRead, write_bam
 
     reads = [
         AlignedRead(qname="m%d" % i, flag=0, rname="chrZ", pos=100 + i,
@@ -242,7 +242,7 @@ def paired_bam(tmp_path_factory):
     unsuffixed qnames, singletons, a triple-occurrence name, qcfail /
     mate-unmapped / unpaired-flag records, a same-strand pair, a '*'
     CIGAR mate, and mixed read lengths."""
-    from miso_tpu.io.sam import AlignedRead, write_bam
+    from miso_jax.io.sam import AlignedRead, write_bam
 
     F_PAIR, F_MUNMAP, F_REV, F_QCFAIL = 0x1, 0x8, 0x10, 0x200
     reads = []
@@ -290,8 +290,8 @@ def test_fetch_columnar_paired_matches_parse_reads(paired_bam,
     """The native-paired columnar ingest equals fetch + sam_parse_reads
     (paired) on every edge case, including strand rules and read-length
     filters."""
-    from miso_tpu import native
-    from miso_tpu.io.sam import sam_parse_reads
+    from miso_jax import native
+    from miso_jax.io.sam import sam_parse_reads
     if native.load() is None:
         pytest.skip("native library unavailable")
     reader = IndexedBamReader(paired_bam)
@@ -311,8 +311,8 @@ def test_fetch_columnar_paired_matches_parse_reads(paired_bam,
 def test_fetch_columnar_stranded_matches_parse_reads(paired_bam):
     """Single-end fr-firststrand columnar filter equals the Python
     path's read_matches_strand."""
-    from miso_tpu import native
-    from miso_tpu.io.sam import sam_parse_reads
+    from miso_jax import native
+    from miso_jax.io.sam import sam_parse_reads
     if native.load() is None:
         pytest.skip("native library unavailable")
     reader = IndexedBamReader(paired_bam)
@@ -329,8 +329,8 @@ def test_fetch_columnar_stranded_matches_parse_reads(paired_bam):
 def test_scan_chrom_columnar_slice_matches_fetch_columnar(big_bam):
     """Whole-chromosome scan + region slice == per-region columnar
     fetch == fetch + sam_parse_reads, for every selection filter."""
-    from miso_tpu import native
-    from miso_tpu.io.sam import sam_parse_reads
+    from miso_jax import native
+    from miso_jax.io.sam import sam_parse_reads
     if native.load() is None:
         pytest.skip("native library unavailable")
     reader = IndexedBamReader(big_bam)
@@ -349,7 +349,7 @@ def test_scan_chrom_columnar_slice_matches_fetch_columnar(big_bam):
 
 
 def test_scan_chrom_columnar_stranded(paired_bam):
-    from miso_tpu import native
+    from miso_jax import native
     if native.load() is None:
         pytest.skip("native library unavailable")
     reader = IndexedBamReader(paired_bam)
@@ -367,7 +367,7 @@ def test_columnar_unknown_strand_rule_raises_like_python_path(paired_bam):
     """An unknown strand rule with a target strand must raise on the
     native columnar paths exactly as read_matches_strand does on the
     Python path -- not silently quantify as unstranded."""
-    from miso_tpu import native
+    from miso_jax import native
     if native.load() is None:
         pytest.skip("native library unavailable")
     reader = IndexedBamReader(paired_bam)
@@ -393,7 +393,7 @@ def test_scan_chrom_paired_slice_matches_fetch_columnar_paired(paired_bam):
     columnar fetch, across strand rules and read-length filters (every
     name in the fixture has at most 2 same-chromosome records, so the
     pairing scopes coincide -- see scan_chrom_columnar_paired)."""
-    from miso_tpu import native
+    from miso_jax import native
     if native.load() is None:
         pytest.skip("native library unavailable")
     reader = IndexedBamReader(paired_bam)
@@ -415,8 +415,8 @@ def test_chrom_paired_scan_survives_secondary_alignments(tmp_path):
     must not break its primary pair in the chromosome-scope pairing
     (secondaries are excluded before pairing there; the region-scope
     path keeps reference name-count semantics instead)."""
-    from miso_tpu import native
-    from miso_tpu.io.sam import AlignedRead, write_bam
+    from miso_jax import native
+    from miso_jax.io.sam import AlignedRead, write_bam
     if native.load() is None:
         pytest.skip("native library unavailable")
     F_PAIR, F_REV, F_SEC = 0x1, 0x10, 0x100

@@ -1,7 +1,7 @@
 import numpy as np
 import pytest
 
-from miso_tpu.core.cigar import CigarError, parse_cigar, parse_cigars
+from miso_jax.core.cigar import CigarError, parse_cigar, parse_cigars
 
 
 def test_simple_match():

@@ -9,9 +9,9 @@ import dataclasses
 import numpy as np
 
 from exact_posterior import exact_posterior_mean_2iso
-from miso_tpu.core.events import compile_single_end, pad_events
-from miso_tpu.core.gene import make_gene
-from miso_tpu.core.simulate import simulate_reads
+from miso_jax.core.events import compile_single_end, pad_events
+from miso_jax.core.gene import make_gene
+from miso_jax.core.simulate import simulate_reads
 
 
 def _deep_event(scale=500, n_base=2000, seed=4):
@@ -40,8 +40,8 @@ def test_deep_event_skips_per_read_tensors():
 def test_pipeline_routes_deep_events_to_multinomial(monkeypatch):
     """run_events must select the O(C) multinomial Gibbs and never
     materialize (E, R, I) for a 1M-read bucket."""
-    from miso_tpu import pipeline
-    from miso_tpu.pipeline import RunConfig, run_events
+    from miso_jax import pipeline
+    from miso_jax.pipeline import RunConfig, run_events
 
     _, deep = _deep_event()
     seen = {}
@@ -67,7 +67,7 @@ def test_deep_event_matches_exact_posterior():
     inside MC tolerance."""
     import jax
 
-    from miso_tpu.sampler.mcmc import EventBatch, SamplerConfig, run_batch
+    from miso_jax.sampler.mcmc import EventBatch, SamplerConfig, run_batch
 
     shallow, deep = _deep_event()
     exact = exact_posterior_mean_2iso(deep)
@@ -85,7 +85,7 @@ def test_multinomial_and_perread_gibbs_agree():
     statistic argument in docs/DEEP_EVENTS.md)."""
     import jax
 
-    from miso_tpu.sampler.mcmc import EventBatch, SamplerConfig, run_batch
+    from miso_jax.sampler.mcmc import EventBatch, SamplerConfig, run_batch
 
     shallow, _ = _deep_event()
     exact = exact_posterior_mean_2iso(shallow)

@@ -16,11 +16,11 @@ num_chains = 2
 
 
 def test_bayes_factors_separate_changed_events(tmp_path):
-    from miso_tpu.cli.compare import main as compare_main
-    from miso_tpu.cli.index_gff import main as index_main
-    from miso_tpu.cli.main import main as miso_main
-    from miso_tpu.io.gff import write_gff
-    from miso_tpu.testing import make_se_catalog, simulate_catalog_bam
+    from miso_jax.cli.compare import main as compare_main
+    from miso_jax.cli.index_gff import main as index_main
+    from miso_jax.cli.main import main as miso_main
+    from miso_jax.io.gff import write_gff
+    from miso_jax.testing import make_se_catalog, simulate_catalog_bam
 
     rng = np.random.default_rng(21)
     genes, records, _ = make_se_catalog(12, rng)
@@ -51,7 +51,7 @@ def test_bayes_factors_separate_changed_events(tmp_path):
     assert rc == 0
     bf_file = os.path.join(cmp_dir, "s1_out_vs_s2_out", "bayes-factors",
                            "s1_out_vs_s2_out.miso_bf")
-    from miso_tpu.cli.filter_events import read_bf_file
+    from miso_jax.cli.filter_events import read_bf_file
     _, rows = read_bf_file(bf_file)
     assert len(rows) == 12
     by_event = {r["event_name"]: r for r in rows}
@@ -72,7 +72,7 @@ def test_bayes_factors_separate_changed_events(tmp_path):
     # delta-psi threshold.
     assert all(abs(d) < 0.3 for d in same_diffs), same_diffs
     # and the filter CLI keeps exactly the changed ones
-    from miso_tpu.cli.filter_events import main as filter_main
+    from miso_jax.cli.filter_events import main as filter_main
     fdir = str(tmp_path / "filt")
     rc = filter_main(["--filter", bf_file, "--output-dir", fdir,
                       "--bayes-factor", "20", "--delta-psi", "0.3",
@@ -91,9 +91,9 @@ def test_batch_comparison_matches_scalar_rows():
     isoform events, null self-comparison, and degenerate posteriors."""
     import numpy as np
 
-    from miso_tpu.io.comparison import (_comparison_fields,
+    from miso_jax.io.comparison import (_comparison_fields,
                                         _comparison_rows)
-    from miso_tpu.io.miso_file import MISOFileData
+    from miso_jax.io.miso_file import MISOFileData
 
     rng = np.random.default_rng(9)
 
@@ -102,7 +102,7 @@ def test_batch_comparison_matches_scalar_rows():
         header = ("#isoforms=['a','b']\tcounts=(1,0):5\t"
                   "assigned_counts=0:3,1:2\tchrom=chr1\tstrand=+\t"
                   "mRNA_starts=1,1\tmRNA_ends=9,9")
-        from miso_tpu.io.miso_file import (
+        from miso_jax.io.miso_file import (
             get_counts_from_header, parse_sampler_params_from_header)
         return MISOFileData(
             samples=samples, header=header,

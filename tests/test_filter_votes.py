@@ -4,7 +4,7 @@ import os
 
 import pytest
 
-from miso_tpu.cli.filter_events import (CountThresholds, filter_events,
+from miso_jax.cli.filter_events import (CountThresholds, filter_events,
                                         get_counts, main, multi_filter)
 
 

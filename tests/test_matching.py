@@ -1,11 +1,11 @@
 import numpy as np
 import pytest
 
-from miso_tpu.core.gene import make_gene
-from miso_tpu.core.matching import (collapse_to_classes, match_iso,
+from miso_jax.core.gene import make_gene
+from miso_jax.core.matching import (collapse_to_classes, match_iso,
                                     match_iso_paired)
-from miso_tpu.core.fragments import normal_fragment
-from miso_tpu.core.simulate import simulate_reads
+from miso_jax.core.fragments import normal_fragment
+from miso_jax.core.simulate import simulate_reads
 
 
 def two_iso_gene():
@@ -107,9 +107,9 @@ def test_paired_fragment_lengths():
 
 
 def test_native_matcher_equals_python():
-    """The C++ matcher (miso_tpu/native/matchlib.cpp) must agree exactly
+    """The C++ matcher (miso_jax/native/matchlib.cpp) must agree exactly
     with the numpy reference implementation."""
-    from miso_tpu import native
+    from miso_jax import native
     g = make_gene([300, 150, 300, 100], [[1, 2, 3, 4], [1, 3, 4], [1, 4]])
     rng = np.random.default_rng(9)
     _, pos, cig = simulate_reads(g, [0.5, 0.3, 0.2], 5000, 30, rng)
@@ -132,10 +132,10 @@ def test_fused_match_classes_random_genes_vs_numpy():
     structures and reads -- classes, counts, order, any_compatible."""
     import os
 
-    import miso_tpu.native as nat
-    from miso_tpu.core.matching import (collapse_to_classes, match_classes,
+    import miso_jax.native as nat
+    from miso_jax.core.matching import (collapse_to_classes, match_classes,
                                         match_iso)
-    from miso_tpu.core.simulate import simulate_reads
+    from miso_jax.core.simulate import simulate_reads
 
     if nat.load() is None:
         pytest.skip("native library unavailable")

@@ -11,13 +11,13 @@ import jax
 import numpy as np
 import pytest
 
-from miso_tpu.pipeline import RunConfig, resolve_mesh, run_events
+from miso_jax.pipeline import RunConfig, resolve_mesh, run_events
 
 
 def _demo_events(n, seed=3):
-    from miso_tpu.core.events import compile_single_end
-    from miso_tpu.core.gene import make_gene
-    from miso_tpu.core.simulate import simulate_reads
+    from miso_jax.core.events import compile_single_end
+    from miso_jax.core.gene import make_gene
+    from miso_jax.core.simulate import simulate_reads
 
     rng = np.random.default_rng(seed)
     g2 = make_gene([100, 50, 100], [[1, 2, 3], [1, 3]])
@@ -83,15 +83,15 @@ def test_event_dp_scaling_curve():
     """Hermetic evidence for linear event-DP scaling (SURVEY.md section 2c):
     (1) sharding the same catalog over a growing mesh adds no overhead
     (no collectives in the run path), and (2) the per-device program of
-    an N-chip pod member -- the sampler on E/N events -- costs ~1/N,
+    an N-device mesh member -- the sampler on E/N events -- costs ~1/N,
     so N chips give ~N-fold throughput.  On this shared-core CPU host
     (all virtual devices share the host's cores) (1) is the flat-wall
     check and (2) the scaling assertion."""
     import time
 
-    from miso_tpu.parallel.mesh import run_batch_sharded
-    from miso_tpu.sampler.mcmc import EventBatch, SamplerConfig, run_batch
-    from miso_tpu.core.events import pad_events
+    from miso_jax.parallel.mesh import run_batch_sharded
+    from miso_jax.sampler.mcmc import EventBatch, SamplerConfig, run_batch
+    from miso_jax.core.events import pad_events
     from jax.sharding import Mesh
 
     events = _demo_events(256, seed=9)

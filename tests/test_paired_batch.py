@@ -11,11 +11,11 @@ import tempfile
 import numpy as np
 import pytest
 
-from miso_tpu.core.events import compile_paired_end, compile_paired_end_many
-from miso_tpu.core.gene import make_gene
-from miso_tpu.core.simulate import simulate_paired_reads
-from miso_tpu.io import sam as sam_io
-from miso_tpu.io.sam import AlignedRead, write_bam
+from miso_jax.core.events import compile_paired_end, compile_paired_end_many
+from miso_jax.core.gene import make_gene
+from miso_jax.core.simulate import simulate_paired_reads
+from miso_jax.io import sam as sam_io
+from miso_jax.io.sam import AlignedRead, write_bam
 
 
 @pytest.fixture(scope="module")
@@ -97,10 +97,10 @@ def test_compile_tables_equal_gene_path(tmp_path):
 
     import jax
 
-    from miso_tpu.io.index import (get_gene_ids_to_filenames, index_gff,
+    from miso_jax.io.index import (get_gene_ids_to_filenames, index_gff,
                                    load_chrom_batch, load_compile_tables)
-    from miso_tpu.testing import build_catalog_fixture
-    from miso_tpu.core.events import compile_single_end_many
+    from miso_jax.testing import build_catalog_fixture
+    from miso_jax.core.events import compile_single_end_many
 
     fix = build_catalog_fixture(str(tmp_path / "c"), num_events=60,
                                 reads_per_event=60, read_len=36, seed=9)

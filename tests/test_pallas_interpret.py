@@ -1,386 +1,293 @@
-"""Hermetic (CPU) control-flow regression test for the fused Pallas
-REASSIGN kernel.
+"""CPU tests of the fused REASSIGN kernel (sampler/pallas_kernel.py) in
+the Pallas interpreter.
 
-The Mosaic interpreter has no PRNG (prng_random_bits returns zeros), so
-the kernel's *distribution* can only be validated on a real TPU
-(tests/test_pallas.py).  But with MISO_PALLAS_NO_PRNG the kernel is
-fully deterministic (every uniform is 0.4999), so its control flow --
-the MH/Gibbs recurrence, burn-in/lag record schedule, 128-row staging
-flushes, padded-read count telescoping, output lane layout -- can be
-checked exactly against an independent numpy simulation of the same
-math, in the Pallas interpreter, on CPU.
+The kernel's random numbers come from a counter-based generator, so the
+interpreter runs the same random path as the card.  An independent
+numpy replica of one (event, chain) lane -- generator included -- must
+reproduce the kernel's records, scores, acceptance counts and final
+state: the MH/Gibbs recurrence, the burn-in/lag record schedule, the
+padded-read count telescoping and the output lane layout.
 """
 import numpy as np
 import pytest
+from scipy.special import gammaln
 
 import jax
+import jax.numpy as jnp
 
-import miso_tpu.sampler.pallas_kernel as pk
-from miso_tpu.sampler.mcmc import EventBatch, SamplerConfig
+import miso_jax.sampler.pallas_kernel as pk
+from miso_jax.sampler.mcmc import EventBatch, SamplerConfig
 
-U = 0.4999  # the _DEBUG_NO_PRNG constant for every uniform draw
-
-
-def _sim_event(read_w, rls, log_iso_w, hyper, num_iso, cfg, R,
-               start_psi=None):
-    """Numpy replica of one (event, chain) lane of _sampler_kernel."""
-    I = read_w.shape[1]
-    iso_mask = (np.arange(I) < num_iso).astype(np.float64)
-    amask = (np.arange(I) < num_iso - 1).astype(np.float64)
-    last_onehot = (np.arange(I) == num_iso - 1).astype(np.float64)
-    km1 = amask.sum()
-    kk = km1 + 1.0
-    sigma = 0.2 / (num_iso * num_iso)
-    noise_scale = sigma if num_iso == 2 else np.sqrt(sigma)
-    from scipy.special import gammaln
-    h = np.where(iso_mask > 0, hyper, 1.0)
-    dir_const = gammaln(np.sum(np.where(iso_mask > 0, h, 0.0))) - \
-        np.sum(np.where(iso_mask > 0, gammaln(h), 0.0))
-    eiw = np.exp(np.maximum(log_iso_w, -1e30)) * iso_mask
-    a_liw = np.where(iso_mask > 0, np.maximum(log_iso_w, -1e30), 0.0)
-    h1 = np.where(iso_mask > 0, h - 1.0, 0.0)
-    H1 = h1.sum()
-
-    def normal_rows():
-        # _normal_rows with u1 = u2 = U: one shared Box-Muller radius
-        r = np.sqrt(-2.0 * np.log(max(U, 2.0 ** -24)))
-        ang = 2.0 * np.pi * U
-        if I == 1:
-            return np.array([r * np.cos(ang)])
-        H = (I + 1) // 2
-        z = np.concatenate([np.full(H, r * np.cos(ang)),
-                            np.full(H, r * np.sin(ang))])
-        return z[:I]
-
-    def stats(alpha):
-        e = np.exp(alpha) * amask
-        denom = 1.0 + e.sum()
-        ld = np.log(denom)
-        e_aug = e + last_onehot
-        psi = e_aug / denom
-        logS = np.log(max((e_aug * eiw).sum(), 1e-38))
-        return psi, ld, logS
-
-    valid = read_w.sum(axis=1) > 0
-    n_valid = valid.sum()
-    n_pad = float(R) - n_valid
-
-    def gibbs(psi):
-        rw = read_w * psi[None, :]
-        cums = np.cumsum(rw, axis=1)
-        acc = cums[:, -1]
-        u = max(U, 2.0 ** -24) * acc
-        n = np.zeros(I)
-        for i in range(I):
-            ge = (cums[:, i] >= u) if i < I - 1 else valid
-            prev = (cums[:, i - 1] >= u) if i > 0 else np.zeros(R, bool)
-            oh = ge.astype(float) - prev.astype(float)
-            n[i] = oh.sum()
-        n[0] -= n_pad
-        if I > 1:
-            n[-1] += n_pad
-        return n
-
-    def read_prob(psi):
-        rw = read_w * psi[None, :]
-        cums = np.cumsum(rw, axis=1)
-        acc = cums[:, -1]
-        u = max(U, 2.0 ** -24) * acc
-        rp = 0.0
-        for i in range(I):
-            ge = (cums[:, i] >= u) if i < I - 1 else valid
-            prev = (cums[:, i - 1] >= u) if i > 0 \
-                else np.zeros(R, bool)
-            oh = ge.astype(float) - prev.astype(float)
-            rp += (oh * rls[:, i]).sum()
-        return rp
-
-    if start_psi is not None:
-        sp_last = (start_psi * last_onehot).sum()
-        alpha0 = np.where(amask > 0,
-                          np.log(np.maximum(start_psi, 1e-30))
-                          - np.log(max(sp_last, 1e-30)), 0.0)
-    else:
-        alpha0 = np.where(amask > 0,
-                          0.0 if km1 == 1.0 else 1.0 / max(km1, 1.0), 0.0)
-    alpha = alpha0 + noise_scale * normal_rows() * amask
-    psi, ld, logS = stats(alpha)
-    n = gibbs(psi)
-    rp = read_prob(psi)
-    acc_count = 0.0
-
-    rec_psi, rec_ll = [], []
-    for m in range(cfg.iters):
-        full = 1.0 if m > 0 else 0.0
-        d = noise_scale * normal_rows() * amask
-        alpha_new = alpha + d
-        psi_new, ld_new, logS_new = stats(alpha_new)
-        logr = (((n + h1) * d).sum() - n_valid * (logS_new - logS)
-                - H1 * (ld_new - ld)
-                + full * (d.sum() + kk * (ld - ld_new)))
-        accept = 1.0 if (logr >= 0 or np.log(max(U, 2.0 ** -24)) < logr) \
-            else 0.0
-        if accept:
-            alpha, psi, ld, logS = alpha_new, psi_new, ld_new, logS_new
-        acc_count += accept
-        recorded = (m + 1 > cfg.burn_in
-                    and (m + 1 - cfg.burn_in) % cfg.lag == 0)
-        if recorded:
-            a_aug = alpha * amask
-            t = ((n + h1) * a_aug + n * a_liw).sum()
-            score = rp + t - n_valid * logS - H1 * ld + dir_const
-            rec_psi.append(psi.copy())
-            rec_ll.append(score)
-        n = gibbs(psi)
-        rp = read_prob(psi)
-    return np.array(rec_psi), np.array(rec_ll), acc_count, n, psi
+M32 = np.uint32
 
 
-@pytest.mark.parametrize("num_iso", [2, 3])
-def test_kernel_matches_numpy_sim_interpret(monkeypatch, num_iso):
-    monkeypatch.setattr(pk, "_DEBUG_NO_PRNG", True)
-
-    R, E, K = 16, 2, 2
-    I = num_iso
-    rng = np.random.default_rng(0)
-    # compatibility patterns with a couple of padded (all-zero) reads
-    read_w = (rng.random((E, R, I)) < 0.7).astype(np.float32)
-    read_w[:, -3:, :] = 0.0
-    read_w[:, 0, :] = 1.0
-    rls = np.where(read_w > 0, np.log(0.01 + rng.random((E, R, I))), 0.0
-                   ).astype(np.float32)
-    log_iso_w = np.log(np.array([[200.0, 120.0, 80.0][:I]] * E,
-                                np.float32))
-    hyper = np.ones((E, I), np.float32)
-    batch = EventBatch(
-        weights=np.zeros((E, 4, I), np.float32),
-        log_read=np.zeros((E, 4, I), np.float32),
-        counts=np.zeros((E, 4), np.float32),
-        log_iso_w=log_iso_w,
-        hyper=hyper,
-        num_iso=np.full((E,), num_iso, np.int32),
-        read_w=read_w,
-        read_logscore=rls,
-    )
-    cfg = SamplerConfig(iters=24, burn_in=6, lag=3, chains=K)
-    out = pk.run_batch_pallas(jax.random.PRNGKey(0), batch, cfg,
-                              interpret=True)
-    psi_s = np.asarray(out.psi_samples)    # (E, RREC, K, I)
-    ll = np.asarray(out.loglik)            # (E, RREC, K)
-    accepted = np.asarray(out.accepted)    # (E,)
-    final_n = np.asarray(out.final_n)      # (E, K, I)
-    final_psi = np.asarray(out.final_psi)
-
-    for e in range(E):
-        sim_psi, sim_ll, sim_acc, sim_n, sim_fpsi = _sim_event(
-            read_w[e].astype(np.float64), rls[e].astype(np.float64),
-            log_iso_w[e].astype(np.float64),
-            hyper[e].astype(np.float64), num_iso, cfg, R)
-        for k in range(K):   # chains are identical under fixed PRNG
-            np.testing.assert_allclose(psi_s[e, :, k, :], sim_psi,
-                                       rtol=0, atol=2e-4)
-            np.testing.assert_allclose(ll[e, :, k], sim_ll,
-                                       rtol=0, atol=2e-3)
-            np.testing.assert_allclose(final_n[e, k], sim_n, atol=1e-5)
-            np.testing.assert_allclose(final_psi[e, k], sim_fpsi,
-                                       atol=2e-4)
-        assert accepted[e] == pytest.approx(sim_acc * K)
+def _h(x):
+    """lowbias32 on uint32 arrays (wrapping arithmetic)."""
+    x = np.asarray(x, np.uint32)
+    with np.errstate(over="ignore"):
+        x = x ^ (x >> M32(16))
+        x = x * M32(0x7FEB352D)
+        x = x ^ (x >> M32(15))
+        x = x * M32(0x846CA68B)
+        return x ^ (x >> M32(16))
 
 
-def _sim_marginal(weights, counts, hyper, num_iso, cfg, start_psi=None):
-    """Numpy replica of one (event, chain) lane of _marginal_kernel."""
-    from scipy.special import gammaln
-    C, I = weights.shape
+def _add(a, b):
+    """uint32 wrapping a + b."""
+    return ((np.asarray(a, np.uint64) + np.uint64(b))
+            & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+
+
+def _word(key, j):
+    return _h(_add(key, (j * pk.WORD) & 0xFFFFFFFF))
+
+
+def _u23(w):
+    return float(int(w) >> 9) * 2.0 ** -23
+
+
+class _Stream:
+    """The kernel's generator for one global lane."""
+
+    def __init__(self, seed, lane, I):
+        self.I = I
+        self.H = (I + 1) // 2
+        self.lane_key = _h(_h(M32(lane) ^ M32(pk.LANE_SALT)) ^ _h(seed))
+
+    def key(self, m):
+        """Iteration key; m = -1 is the initial state."""
+        if m < 0:
+            return _h(self.lane_key)
+        return _h(_add(self.lane_key, ((m + 1) * pk.GOLDEN) & 0xFFFFFFFF))
+
+    def normals(self, key):
+        z = []
+        for h in range(self.H):
+            u1 = max(_u23(_word(key, 1 + 2 * h)), 2.0 ** -24)
+            u2 = _u23(_word(key, 2 + 2 * h))
+            rad = np.sqrt(-2.0 * np.log(u1))
+            z += [rad * np.cos(2 * np.pi * u2), rad * np.sin(2 * np.pi * u2)]
+        return np.array(z[:self.I])
+
+    def accept_u(self, key):
+        return max(_u23(_word(key, 0)), 2.0 ** -24)
+
+    def read_u(self, key, R):
+        base = 1 + 2 * self.H
+        out = np.empty(R)
+        for r in range(R):
+            w = int(_word(key, base + r // 2))
+            bits = (w & 0xFFFF) if r % 2 == 0 else (w >> 16)
+            out[r] = (bits | 1) * 2.0 ** -16
+        return out
+
+
+def _sim_lane(read_w, rls, log_iso_w, hyper, num_iso, cfg, stream,
+              start_psi=None):
+    """Numpy replica of one (event, chain) lane of the kernel."""
+    R, I = read_w.shape
     iso_mask = (np.arange(I) < num_iso).astype(float)
     amask = (np.arange(I) < num_iso - 1).astype(float)
     last = (np.arange(I) == num_iso - 1).astype(float)
     km1 = amask.sum()
     sigma = 0.2 / (num_iso * num_iso)
-    noise_scale = sigma if num_iso == 2 else np.sqrt(sigma)
-    inv_sigma = 1.0 / sigma
-    prop_const = -0.5 * (num_iso - 1.0) * np.log(2.0 * np.pi * sigma)
+    noise = sigma if num_iso == 2 else np.sqrt(sigma)
     h = np.where(iso_mask > 0, hyper, 1.0)
-    dir_const = gammaln(np.sum(np.where(iso_mask > 0, h, 0.0))) - \
-        np.sum(np.where(iso_mask > 0, gammaln(h), 0.0))
+    dir_const = gammaln(h[iso_mask > 0].sum()) - gammaln(h[iso_mask > 0]).sum()
+    liw = np.maximum(log_iso_w, -1e30)
+    eiw = np.exp(liw) * iso_mask
+    a_liw = np.where(iso_mask > 0, liw, 0.0)
+    h1 = np.where(iso_mask > 0, h - 1.0, 0.0)
+    H1 = h1.sum()
+    valid = read_w.sum(axis=1) > 0
+    n_valid = valid.sum()
 
-    def normal_rows():
-        # _normal((I, B)) draws I independent Box-Muller values; with
-        # fixed u1 = u2 = U they are all equal
-        r = np.sqrt(-2.0 * np.log(max(U, 2.0 ** -24)))
-        return np.full(I, r * np.cos(2.0 * np.pi * U))
-
-    def logistic_inv(alpha):
+    def stats(alpha):
         e = np.exp(alpha) * amask
         denom = 1.0 + e.sum()
-        head = e / denom
-        return head + last * (1.0 - head.sum())
+        e_aug = e + last
+        return (e_aug / denom, np.log(denom),
+                np.log(max((e_aug * eiw).sum(), 1e-38)))
 
-    def joint_score(psi):
-        s = weights @ psi
-        read_term = np.where(s > 0, counts * np.log(np.maximum(s, 1e-38)),
-                             0.0).sum()
-        dirp = np.where(iso_mask > 0,
-                        (h - 1.0) * np.log(np.maximum(psi, 1e-38)),
-                        0.0).sum() + dir_const
-        return read_term + dirp
-
-    def proposal_score(psi, mu_alpha):
-        ltheta = (psi * last).sum()
-        logpsi = np.where(amask > 0, np.log(np.maximum(psi, 1e-38)), 0.0)
-        tmp = np.where(amask > 0,
-                       logpsi - np.log(max(ltheta, 1e-38)) - mu_alpha, 0.0)
-        return (prop_const - logpsi.sum() - np.log(max(ltheta, 1e-38))
-                - 0.5 * (tmp * tmp).sum() * inv_sigma)
+    def gibbs(psi, key):
+        cums = np.cumsum(read_w * psi[None, :], axis=1)
+        u = stream.read_u(key, R) * cums[:, -1]
+        ge = cums >= u[:, None]
+        ge[:, -1] = True
+        choice = np.argmax(ge, axis=1)
+        n = np.bincount(choice[valid], minlength=I).astype(float)
+        rp = rls[np.arange(R), choice][valid].sum()
+        return n, rp
 
     if start_psi is not None:
         sp_last = (start_psi * last).sum()
-        alpha0 = np.where(amask > 0,
-                          np.log(np.maximum(start_psi, 1e-30))
+        alpha0 = np.where(amask > 0, np.log(np.maximum(start_psi, 1e-30))
                           - np.log(max(sp_last, 1e-30)), 0.0)
     else:
-        alpha0 = np.where(amask > 0,
-                          0.0 if km1 == 1.0 else 1.0 / max(km1, 1.0), 0.0)
-    alpha = alpha0 + noise_scale * normal_rows() * amask
-    psi = logistic_inv(alpha)
-    acc_count = 0.0
+        alpha0 = amask * (0.0 if km1 == 1.0 else 1.0 / max(km1, 1.0))
+    key = stream.key(-1)
+    alpha = alpha0 + noise * stream.normals(key) * amask
+    psi, ld, logS = stats(alpha)
+    n, rp = gibbs(psi, key)
+    acc = 0
     rec_psi, rec_ll = [], []
     for m in range(cfg.iters):
-        full = 1.0 if m > 0 else 0.0
-        alpha_new = alpha + noise_scale * normal_rows() * amask
-        psi_new = logistic_inv(alpha_new)
-        logr = (joint_score(psi_new) - joint_score(psi)
-                + full * (proposal_score(psi, alpha_new)
-                          - proposal_score(psi_new, alpha)))
-        if logr >= 0 or np.log(max(U, 2.0 ** -24)) < logr:
-            alpha, psi = alpha_new, psi_new
-            acc_count += 1.0
-        if (m + 1 > cfg.burn_in
-                and (m + 1 - cfg.burn_in) % cfg.lag == 0):
+        key = stream.key(m)
+        d = noise * stream.normals(key) * amask
+        psi_new, ld_new, logS_new = stats(alpha + d)
+        logr = (((n + h1) * d).sum() - n_valid * (logS_new - logS)
+                - H1 * (ld_new - ld)
+                + (m > 0) * (d.sum() + (km1 + 1.0) * (ld - ld_new)))
+        if logr >= 0 or np.log(stream.accept_u(key)) < logr:
+            alpha, psi, ld, logS = alpha + d, psi_new, ld_new, logS_new
+            acc += 1
+        if m + 1 > cfg.burn_in and (m + 1 - cfg.burn_in) % cfg.lag == 0:
+            t = ((n + h1) * alpha * amask + n * a_liw).sum()
             rec_psi.append(psi.copy())
-            rec_ll.append(joint_score(psi))
-    return np.array(rec_psi), np.array(rec_ll), acc_count, psi
+            rec_ll.append(rp + t - n_valid * logS - H1 * ld + dir_const)
+        n, rp = gibbs(psi, key)
+    return np.array(rec_psi), np.array(rec_ll), acc, n, psi
 
 
-@pytest.mark.parametrize("num_iso", [2, 3])
-def test_marginal_kernel_matches_numpy_sim_interpret(monkeypatch, num_iso):
-    import miso_tpu.sampler.pallas_marginal as pm
-    monkeypatch.setattr(pk, "_DEBUG_NO_PRNG", True)
-
-    E, K, C, I = 2, 2, 4, num_iso
-    rng = np.random.default_rng(1)
-    weights = rng.random((E, C, I)).astype(np.float32)
-    weights[:, -1, :] = 0.0          # an empty class
-    counts = np.array([[30.0, 20.0, 10.0, 0.0]] * E, np.float32)
-    hyper = np.ones((E, I), np.float32)
-    batch = EventBatch(
-        weights=weights,
-        log_read=np.zeros((E, C, I), np.float32),
-        counts=counts,
-        log_iso_w=np.zeros((E, I), np.float32),
-        hyper=hyper,
-        num_iso=np.full((E,), num_iso, np.int32),
-        read_w=np.zeros((E, 1, I), np.float32),
-        read_logscore=np.zeros((E, 1, I), np.float32),
-    )
-    cfg = SamplerConfig(iters=24, burn_in=6, lag=3, chains=K,
-                        algorithm="marginal")
-    out = pm.run_batch_pallas_marginal(jax.random.PRNGKey(0), batch, cfg,
-                                       interpret=True)
-    psi_s = np.asarray(out.psi_samples)
-    ll = np.asarray(out.loglik)
-    accepted = np.asarray(out.accepted)
-    final_psi = np.asarray(out.final_psi)
-    for e in range(E):
-        sim_psi, sim_ll, sim_acc, sim_fpsi = _sim_marginal(
-            weights[e].astype(np.float64), counts[e].astype(np.float64),
-            hyper[e].astype(np.float64), num_iso, cfg)
-        for k in range(K):
-            np.testing.assert_allclose(psi_s[e, :, k, :], sim_psi,
-                                       rtol=0, atol=2e-4)
-            np.testing.assert_allclose(ll[e, :, k], sim_ll,
-                                       rtol=0, atol=2e-3)
-            np.testing.assert_allclose(final_psi[e, k], sim_fpsi,
-                                       atol=2e-4)
-        assert accepted[e] == pytest.approx(sim_acc * K)
-
-
-def test_kernel_given_start_interpret(monkeypatch):
-    """GIVEN-start (miso.c:405-409) in the fused REASSIGN kernel: each
-    (event, chain) lane starts from its own psi; the deterministic
-    NO_PRNG chain must match the numpy replica seeded the same way."""
-    monkeypatch.setattr(pk, "_DEBUG_NO_PRNG", True)
-
-    R, E, K, I = 16, 2, 2, 2
-    rng = np.random.default_rng(5)
+def _reads_batch(E, R, I, seed):
+    rng = np.random.default_rng(seed)
     read_w = (rng.random((E, R, I)) < 0.7).astype(np.float32)
+    read_w[:, -3:, :] = 0.0          # padded reads
     read_w[:, 0, :] = 1.0
     rls = np.where(read_w > 0, np.log(0.01 + rng.random((E, R, I))), 0.0
                    ).astype(np.float32)
-    log_iso_w = np.log(np.array([[200.0, 120.0]] * E, np.float32))
-    batch = EventBatch(
+    lens = np.array([200.0, 120.0, 80.0, 150.0, 90.0, 60.0, 170.0, 110.0])
+    return EventBatch(
         weights=np.zeros((E, 4, I), np.float32),
         log_read=np.zeros((E, 4, I), np.float32),
         counts=np.zeros((E, 4), np.float32),
-        log_iso_w=log_iso_w,
+        log_iso_w=np.log(np.tile(lens[:I], (E, 1))).astype(np.float32),
         hyper=np.ones((E, I), np.float32),
         num_iso=np.full((E,), I, np.int32),
         read_w=read_w,
         read_logscore=rls,
     )
-    cfg = SamplerConfig(iters=24, burn_in=6, lag=3, chains=K)
-    # distinct start per (event, chain): exercises the lane layout
-    start = np.zeros((E, K, I), np.float32)
-    p0 = np.array([[0.9, 0.3], [0.6, 0.15]], np.float32)  # (E, K)
+
+
+def _check_against_replica(batch, cfg, key, start=None, lane_offset=0):
+    out = pk.run_batch_pallas(key, batch, cfg, interpret=True,
+                              start_psi=start, lane_offset=lane_offset)
+    seed = np.asarray(jax.random.bits(key, (), jnp.uint32))
+    E, R, I = batch.read_w.shape
+    K = cfg.chains
+    psi_s = np.asarray(out.psi_samples)    # (E, RREC, K, I)
+    ll = np.asarray(out.loglik)            # (E, RREC, K)
+    final_n = np.asarray(out.final_n)      # (E, K, I)
+    final_psi = np.asarray(out.final_psi)
     for e in range(E):
+        acc = 0
         for k in range(K):
-            start[e, k] = [p0[e, k], 1.0 - p0[e, k]]
-    out = pk.run_batch_pallas(jax.random.PRNGKey(0), batch, cfg,
-                              interpret=True, start_psi=start)
-    psi_s = np.asarray(out.psi_samples)
-    for e in range(E):
-        for k in range(K):
-            sim_psi, sim_ll, sim_acc, sim_n, sim_fpsi = _sim_event(
-                read_w[e].astype(np.float64), rls[e].astype(np.float64),
-                log_iso_w[e].astype(np.float64),
-                np.ones(I), I, cfg, R,
-                start_psi=start[e, k].astype(np.float64))
+            sim_psi, sim_ll, sim_acc, sim_n, sim_fpsi = _sim_lane(
+                batch.read_w[e].astype(np.float64),
+                batch.read_logscore[e].astype(np.float64),
+                batch.log_iso_w[e].astype(np.float64),
+                batch.hyper[e].astype(np.float64),
+                int(batch.num_iso[e]), cfg,
+                _Stream(seed, lane_offset + e * K + k, I),
+                start_psi=None if start is None
+                else start[e, k].astype(np.float64))
             np.testing.assert_allclose(psi_s[e, :, k, :], sim_psi,
                                        rtol=0, atol=2e-4)
-            np.testing.assert_allclose(np.asarray(out.final_psi)[e, k],
-                                       sim_fpsi, atol=2e-4)
+            np.testing.assert_allclose(ll[e, :, k], sim_ll, rtol=0,
+                                       atol=2e-3)
+            np.testing.assert_array_equal(final_n[e, k], sim_n)
+            np.testing.assert_allclose(final_psi[e, k], sim_fpsi, atol=2e-4)
+            acc += sim_acc
+        assert int(np.asarray(out.accepted)[e]) == acc
 
 
-def test_marginal_kernel_given_start_interpret(monkeypatch):
-    import miso_tpu.sampler.pallas_marginal as pm
-    monkeypatch.setattr(pk, "_DEBUG_NO_PRNG", True)
+@pytest.mark.parametrize("num_iso", [2, 3])
+def test_kernel_matches_numpy_sim_interpret(num_iso):
+    batch = _reads_batch(2, 16, num_iso, seed=0)
+    cfg = SamplerConfig(iters=24, burn_in=6, lag=3, chains=2)
+    _check_against_replica(batch, cfg, jax.random.PRNGKey(0))
 
-    E, K, C, I = 2, 2, 4, 3
-    rng = np.random.default_rng(6)
-    weights = rng.random((E, C, I)).astype(np.float32)
-    counts = np.array([[30.0, 20.0, 10.0, 5.0]] * E, np.float32)
-    batch = EventBatch(
-        weights=weights,
-        log_read=np.zeros((E, C, I), np.float32),
-        counts=counts,
-        log_iso_w=np.zeros((E, I), np.float32),
-        hyper=np.ones((E, I), np.float32),
-        num_iso=np.full((E,), I, np.int32),
-        read_w=np.zeros((E, 1, I), np.float32),
-        read_logscore=np.zeros((E, 1, I), np.float32),
-    )
-    cfg = SamplerConfig(iters=24, burn_in=6, lag=3, chains=K,
-                        algorithm="marginal")
-    start = rng.dirichlet(np.ones(I), size=(E, K)).astype(np.float32)
-    out = pm.run_batch_pallas_marginal(jax.random.PRNGKey(0), batch, cfg,
-                                       interpret=True, start_psi=start)
-    psi_s = np.asarray(out.psi_samples)
-    for e in range(E):
-        for k in range(K):
-            sim_psi, _, _, sim_fpsi = _sim_marginal(
-                weights[e].astype(np.float64),
-                counts[e].astype(np.float64), np.ones(I), I, cfg,
-                start_psi=start[e, k].astype(np.float64))
-            np.testing.assert_allclose(psi_s[e, :, k, :], sim_psi,
-                                       rtol=0, atol=2e-4)
-            np.testing.assert_allclose(np.asarray(out.final_psi)[e, k],
-                                       sim_fpsi, atol=2e-4)
+
+def test_kernel_given_start_interpret():
+    """GIVEN-start (miso.c:405-409): each (event, chain) lane starts from
+    its own psi and must match the replica seeded the same way; lag=1
+    after a burn-in checks the score of the first record, and a lane
+    offset checks the global lane keying."""
+    batch = _reads_batch(2, 16, 2, seed=5)
+    cfg = SamplerConfig(iters=12, burn_in=4, lag=1, chains=2)
+    p0 = np.array([[0.9, 0.3], [0.6, 0.15]], np.float32)
+    start = np.stack([p0, 1.0 - p0], axis=-1)     # (E, K, I)
+    _check_against_replica(batch, cfg, jax.random.PRNGKey(7), start=start,
+                           lane_offset=5)
+
+
+@pytest.mark.parametrize("num_iso", [2, 3, 4, 5, 6, 7, 8])
+def test_block_padding_and_chunking(num_iso):
+    """E*K not a multiple of the lane block, R not a multiple of the read
+    chunk, and padded isoforms (num_iso < I for one event): every lane
+    must equal the same lane of a one-block run, because each draw is
+    keyed by the global lane and not by the block layout."""
+    E, R, I, K = 5, 21, num_iso, 3
+    batch = _reads_batch(E, R, I, seed=num_iso)
+    num_iso_v = np.full((E,), I, np.int32)
+    num_iso_v[1] = 2                                 # padded isoforms
+    read_w = batch.read_w.copy()
+    read_w[1, :, 2:] = 0.0
+    batch = batch._replace(num_iso=num_iso_v, read_w=read_w)
+    cfg = SamplerConfig(iters=10, burn_in=2, lag=2, chains=K)
+    key = jax.random.PRNGKey(3)
+    assert pk.block_shape(E, K, R, max_lanes=16, max_chunk=4) == (16, 4, 1)
+    assert pk.block_shape(E, K, R, max_lanes=64, max_chunk=32) == (16, 32, 1)
+    blocked = pk.run_batch_pallas(key, batch, cfg, interpret=True,
+                                  max_lanes=16, max_chunk=4)
+    whole = pk.run_batch_pallas(key, batch, cfg, interpret=True,
+                                max_lanes=64, max_chunk=32)
+    for name in blocked._fields:
+        a, b = (np.asarray(getattr(r, name)) for r in (blocked, whole))
+        if name == "loglik":  # read-score sums reassociate per chunk size
+            np.testing.assert_allclose(a, b, rtol=1e-6)
+        else:
+            np.testing.assert_array_equal(a, b)
+    psi = np.asarray(blocked.psi_samples)
+    assert psi.shape == (E, cfg.num_records, K, I)
+    np.testing.assert_allclose(psi.sum(axis=-1), 1.0, atol=1e-5)
+    assert np.all(psi[1, :, :, 2:] == 0.0)           # padded isoforms
+    valid = (batch.read_w.sum(axis=2) > 0).sum(axis=1)
+    np.testing.assert_array_equal(np.asarray(blocked.final_n).sum(axis=-1),
+                                  np.repeat(valid[:, None], K, axis=1))
+
+
+def test_block_shape_rule():
+    """Powers of two, floored at 16 lanes, capped, covering every lane."""
+    assert pk.block_shape(2048, 6, 224) == (32, 32, 384)
+    assert pk.block_shape(1, 6, 20) == (16, 32, 1)
+    assert pk.block_shape(3, 6, 7, max_lanes=16, max_chunk=4) == (16, 4, 2)
+    for E in (1, 5, 100, 333):
+        L, RC, NB = pk.block_shape(E, 6, 100, max_lanes=32)
+        assert L & (L - 1) == 0 and RC & (RC - 1) == 0
+        assert NB * L >= E * 6 > (NB - 1) * L
+
+
+def test_generator_uniform_and_independent():
+    """hash32 words: the kernel's hash equals the replica's, lane keys
+    are distinct, 16- and 23-bit uniforms pass a chi-square test, and
+    words of neighbouring lanes and iterations are uncorrelated."""
+    seed = np.uint32(12345)
+    lanes = np.arange(4096, dtype=np.uint32)
+    lane_key = _h(_h(lanes ^ M32(pk.LANE_SALT)) ^ _h(seed))
+    kernel_key = pk.hash32(pk.hash32(jnp.asarray(lanes)
+                                     ^ np.uint32(pk.LANE_SALT))
+                           ^ pk.hash32(jnp.asarray(seed)))
+    np.testing.assert_array_equal(np.asarray(kernel_key), lane_key)
+    assert len(np.unique(lane_key)) == lanes.size
+    keys = np.stack([_h(_add(lane_key, ((m + 1) * pk.GOLDEN) & 0xFFFFFFFF))
+                     for m in range(64)])        # (iterations, lanes)
+    words = _h(_add(keys, (7 * pk.WORD) & 0xFFFFFFFF)).astype(np.int64)
+    for u in (((words & 0xFFFF) | 1) / 2.0 ** 16, (words >> 9) / 2.0 ** 23):
+        counts = np.histogram(u, bins=64, range=(0, 1))[0]
+        expect = u.size / 64
+        chi2 = ((counts - expect) ** 2 / expect).sum()
+        assert chi2 < 120, chi2          # 63 dof: p ~ 1e-5
+        assert abs(u.mean() - 0.5) < 0.01
+        for a, b in ((u[:, :-1], u[:, 1:]), (u[:-1], u[1:])):
+            assert abs(np.corrcoef(a.ravel(), b.ravel())[0, 1]) < 0.02

@@ -45,7 +45,7 @@ def settings_file(workdir):
 
 @pytest.fixture(scope="module")
 def index_dir(workdir):
-    from miso_tpu.cli.index_gff import main as index_main
+    from miso_jax.cli.index_gff import main as index_main
     out = str(workdir / "index")
     assert index_main(["--index", REF_GFF, out]) == 0
     return out
@@ -53,7 +53,7 @@ def index_dir(workdir):
 
 @pytest.fixture(scope="module")
 def bam_file(workdir):
-    from miso_tpu.io.sam import sam_to_bam
+    from miso_jax.io.sam import sam_to_bam
     out = str(workdir / "reads.bam")
     sam_to_bam(REF_SAM, out)
     return out
@@ -67,7 +67,7 @@ def test_index_layout(index_dir):
 
 
 def test_bam_roundtrip(bam_file):
-    from miso_tpu.io.sam import BamReader, read_sam_text
+    from miso_jax.io.sam import BamReader, read_sam_text
     sam_reads = [r for r in read_sam_text(REF_SAM)]
     bam_reads = list(BamReader(bam_file))
     assert len(bam_reads) == len(sam_reads)
@@ -80,7 +80,7 @@ def test_bam_roundtrip(bam_file):
 
 @pytest.fixture(scope="module")
 def run_output(workdir, index_dir, bam_file, settings_file):
-    from miso_tpu.cli.main import main as miso_main
+    from miso_jax.cli.main import main as miso_main
     out = str(workdir / "output")
     rc = miso_main(["--run", index_dir, bam_file,
                     "--output-dir", out, "--read-len", "36",
@@ -90,7 +90,7 @@ def run_output(workdir, index_dir, bam_file, settings_file):
 
 
 def test_run_produces_miso_file(run_output):
-    from miso_tpu.io.miso_file import load_miso_file
+    from miso_jax.io.miso_file import load_miso_file
     chrom_dir = os.path.join(run_output, "10")
     assert os.path.isdir(chrom_dir), os.listdir(run_output)
     miso_files = [f for f in os.listdir(chrom_dir) if f.endswith(".miso")]
@@ -114,7 +114,7 @@ def test_run_produces_miso_file(run_output):
 
 def test_rerun_is_idempotent(run_output, index_dir, bam_file, settings_file,
                              capsys):
-    from miso_tpu.cli.main import main as miso_main
+    from miso_jax.cli.main import main as miso_main
     rc = miso_main(["--run", index_dir, bam_file,
                     "--output-dir", run_output, "--read-len", "36",
                     "--settings-filename", settings_file])
@@ -123,7 +123,7 @@ def test_rerun_is_idempotent(run_output, index_dir, bam_file, settings_file,
 
 
 def test_summarize(workdir, run_output):
-    from miso_tpu.cli.summarize import main as summarize_main
+    from miso_jax.cli.summarize import main as summarize_main
     out = str(workdir / "summary_out")
     rc = summarize_main(["--summarize-samples", run_output, out])
     assert rc == 0
@@ -139,7 +139,7 @@ def test_summarize(workdir, run_output):
 
 
 def test_compare(workdir, run_output):
-    from miso_tpu.cli.compare import main as compare_main
+    from miso_jax.cli.compare import main as compare_main
     out = str(workdir / "comparison_out")
     rc = compare_main(["--compare-samples", run_output, run_output, out])
     assert rc == 0
@@ -155,7 +155,7 @@ def test_compare(workdir, run_output):
 
 
 def test_filter_events(workdir):
-    from miso_tpu.cli.filter_events import main as filter_main
+    from miso_jax.cli.filter_events import main as filter_main
     bf_file = os.path.join(str(workdir), "comparison_out",
                            "output_vs_output", "bayes-factors",
                            "output_vs_output.miso_bf")
@@ -170,8 +170,8 @@ def test_filter_events(workdir):
 
 def test_pack_and_db_read(workdir, run_output):
     import shutil
-    from miso_tpu.cli.pack import pack_dir
-    from miso_tpu.io.miso_file import MISOSamples
+    from miso_jax.cli.pack import pack_dir
+    from miso_jax.io.miso_file import MISOSamples
     packed = str(workdir / "packed_output")
     shutil.copytree(run_output, packed)
     names_before = MISOSamples(run_output).all_event_names
@@ -184,7 +184,7 @@ def test_pack_and_db_read(workdir, run_output):
     assert data is not None and data.samples.shape[1] == 2
     # miso_pack --view lists the database's event names
     # (misopy/miso_pack.py:102-112)
-    from miso_tpu.cli.pack import main as pack_main
+    from miso_jax.cli.pack import main as pack_main
     out = capsys_run(pack_main,
                      ["--view", os.path.join(packed, "10.miso_db")])
     assert "Database contains %d events" % len(names_before) in out
@@ -205,9 +205,9 @@ def test_catalog_end_to_end(tmp_path):
     """Many-event catalog: simulate -> index -> run -> summarize; posterior
     means must track the simulation truth (correlation check, the
     reference's own oracle in tools/extra-tests/miso-multiple.R)."""
-    from miso_tpu.cli.index_gff import main as index_main
-    from miso_tpu.cli.main import main as miso_main
-    from miso_tpu.testing import build_catalog_fixture
+    from miso_jax.cli.index_gff import main as index_main
+    from miso_jax.cli.main import main as miso_main
+    from miso_jax.testing import build_catalog_fixture
 
     fix = build_catalog_fixture(str(tmp_path / "fix"), num_events=25,
                                 reads_per_event=400, seed=7)
@@ -220,7 +220,7 @@ def test_catalog_end_to_end(tmp_path):
                     "--read-len", str(fix["read_len"]),
                     "--settings-filename", str(settings)])
     assert rc == 0
-    from miso_tpu.io.miso_file import MISOSamples
+    from miso_jax.io.miso_file import MISOSamples
     obj = MISOSamples(out_dir)
     assert obj.num_events == 25
     means = np.zeros(25)
@@ -239,12 +239,12 @@ def test_paired_end_cli(tmp_path):
     """Paired-end through the CLI surface: simulate mates -> SAM -> BAM ->
     miso --run --paired-end MEAN SD."""
     import numpy as np
-    from miso_tpu.cli.index_gff import main as index_main
-    from miso_tpu.cli.main import main as miso_main
-    from miso_tpu.cli.simulate import main as sim_main
-    from miso_tpu.io.gff import GFFRecord, write_gff
-    from miso_tpu.io.miso_file import MISOSamples
-    from miso_tpu.io.sam import sam_to_bam
+    from miso_jax.cli.index_gff import main as index_main
+    from miso_jax.cli.main import main as miso_main
+    from miso_jax.cli.simulate import main as sim_main
+    from miso_jax.io.gff import GFFRecord, write_gff
+    from miso_jax.io.miso_file import MISOSamples
+    from miso_jax.io.sam import sam_to_bam
 
     # one paired-end event gene
     recs = []
@@ -291,13 +291,13 @@ def test_multi_isoform_cli(tmp_path):
     """A 4-isoform gene through the CLI (multi-isoform quantitation,
     reference manual 'Advanced uses')."""
     import numpy as np
-    from miso_tpu.cli.index_gff import main as index_main
-    from miso_tpu.cli.main import main as miso_main
-    from miso_tpu.core.gene import make_gene
-    from miso_tpu.core.simulate import simulate_reads
-    from miso_tpu.io.gff import GFFRecord, write_gff
-    from miso_tpu.io.miso_file import MISOSamples
-    from miso_tpu.io.sam import AlignedRead, write_bam
+    from miso_jax.cli.index_gff import main as index_main
+    from miso_jax.cli.main import main as miso_main
+    from miso_jax.core.gene import make_gene
+    from miso_jax.core.simulate import simulate_reads
+    from miso_jax.io.gff import GFFRecord, write_gff
+    from miso_jax.io.miso_file import MISOSamples
+    from miso_jax.io.sam import AlignedRead, write_bam
 
     gid = "multi4"
     exon_lens = [120, 60, 80, 50, 120]
@@ -341,7 +341,7 @@ def test_multi_isoform_cli(tmp_path):
     mean = data.samples.mean(axis=0)
     assert np.all(np.abs(mean - true_psi) < 0.15), (mean, true_psi)
     # summary formats multi-isoform means/CIs as comma lists
-    from miso_tpu.io.miso_file import summarize_sampler_results
+    from miso_jax.io.miso_file import summarize_sampler_results
     summ = str(tmp_path / "m.miso_summary")
     assert summarize_sampler_results(out, summ) == 1
     line = open(summ).read().splitlines()[1].split("\t")
@@ -359,10 +359,10 @@ def test_compress_id_roundtrip(tmp_path, index_dir, bam_file,
                                settings_file):
     """--compress-id indexing: outputs named by hash, summarize/compare
     map back with --use-compressed (index_gff.py:22-26, 80-118)."""
-    from miso_tpu.cli.index_gff import main as index_main
-    from miso_tpu.cli.main import main as miso_main
-    from miso_tpu.cli.summarize import main as summarize_main
-    from miso_tpu.io.gff import COMPRESS_PREFIX
+    from miso_jax.cli.index_gff import main as index_main
+    from miso_jax.cli.main import main as miso_main
+    from miso_jax.cli.summarize import main as summarize_main
+    from miso_jax.io.gff import COMPRESS_PREFIX
 
     cidx = str(tmp_path / "cindex")
     assert index_main(["--index", REF_GFF, cidx, "--compress-id"]) == 0
@@ -394,8 +394,8 @@ def test_linear_start_cli(workdir, index_dir, bam_file, settings_file):
     only through C; the run must produce a valid .miso."""
     import glob
 
-    from miso_tpu.cli.main import main as miso_main
-    from miso_tpu.io.miso_file import load_miso_file
+    from miso_jax.cli.main import main as miso_main
+    from miso_jax.io.miso_file import load_miso_file
 
     out = str(workdir / "linear_out")
     rc = miso_main(["--run", index_dir, bam_file,
@@ -417,9 +417,9 @@ def test_streaming_pipeline_deterministic(tmp_path):
     a pure function of bucket shape + chunk offset)."""
     import filecmp
 
-    from miso_tpu.io.index import index_gff
-    from miso_tpu.pipeline import RunConfig, compute_all_genes_psi
-    from miso_tpu.testing import build_catalog_fixture
+    from miso_jax.io.index import index_gff
+    from miso_jax.pipeline import RunConfig, compute_all_genes_psi
+    from miso_jax.testing import build_catalog_fixture
 
     fix = build_catalog_fixture(str(tmp_path / "cat"), num_events=120,
                                 reads_per_event=80, read_len=36, seed=3)
@@ -450,10 +450,10 @@ def test_run_integrated_summary(tmp_path):
     all (the readback is the per-event summary payload only)."""
     import glob as glob_mod
 
-    from miso_tpu.cli.index_gff import main as index_main
-    from miso_tpu.cli.main import main as miso_main
-    from miso_tpu.cli.summarize import main as summarize_main
-    from miso_tpu.testing import build_catalog_fixture
+    from miso_jax.cli.index_gff import main as index_main
+    from miso_jax.cli.main import main as miso_main
+    from miso_jax.cli.summarize import main as summarize_main
+    from miso_jax.testing import build_catalog_fixture
 
     fix = build_catalog_fixture(str(tmp_path / "fix"), num_events=30,
                                 reads_per_event=200, seed=11)
@@ -513,10 +513,10 @@ def test_pack_output_direct(tmp_path, capsys):
     the same seed, and a resumed run skips the packed events."""
     import glob as glob_mod
 
-    from miso_tpu.cli.index_gff import main as index_main
-    from miso_tpu.cli.main import main as miso_main
-    from miso_tpu.io.miso_file import MISOSamples
-    from miso_tpu.testing import build_catalog_fixture
+    from miso_jax.cli.index_gff import main as index_main
+    from miso_jax.cli.main import main as miso_main
+    from miso_jax.io.miso_file import MISOSamples
+    from miso_jax.testing import build_catalog_fixture
 
     fix = build_catalog_fixture(str(tmp_path / "fix"), num_events=20,
                                 reads_per_event=150, seed=23)
@@ -567,9 +567,9 @@ def test_resumed_run_summary_is_complete(tmp_path):
     """A run resumed after an interruption must not write a silently
     partial .miso_summary: skip-done events' rows backfill from their
     stored samples when no prior summary exists."""
-    from miso_tpu.cli.index_gff import main as index_main
-    from miso_tpu.cli.main import main as miso_main
-    from miso_tpu.testing import build_catalog_fixture
+    from miso_jax.cli.index_gff import main as index_main
+    from miso_jax.cli.main import main as miso_main
+    from miso_jax.testing import build_catalog_fixture
 
     fix = build_catalog_fixture(str(tmp_path / "fix"), num_events=12,
                                 reads_per_event=150, seed=31)
@@ -607,13 +607,13 @@ def test_pack_output_dotted_chrom(tmp_path):
     """--pack-output with scaffold-style chromosome names ('.'/'-' are
     illegal in bare SQL identifiers) must round-trip."""
     import numpy as np
-    from miso_tpu.cli.index_gff import main as index_main
-    from miso_tpu.cli.main import main as miso_main
-    from miso_tpu.core.gene import make_gene
-    from miso_tpu.core.simulate import simulate_reads
-    from miso_tpu.io.gff import GFFRecord, write_gff
-    from miso_tpu.io.miso_file import MISOSamples
-    from miso_tpu.io.sam import AlignedRead, write_bam
+    from miso_jax.cli.index_gff import main as index_main
+    from miso_jax.cli.main import main as miso_main
+    from miso_jax.core.gene import make_gene
+    from miso_jax.core.simulate import simulate_reads
+    from miso_jax.io.gff import GFFRecord, write_gff
+    from miso_jax.io.miso_file import MISOSamples
+    from miso_jax.io.sam import AlignedRead, write_bam
 
     chrom = "GL000225.1"
     g = make_gene([120, 60, 120], [[1, 2, 3], [1, 3]], chrom=chrom,
@@ -655,7 +655,7 @@ def test_pack_output_dotted_chrom(tmp_path):
 
 
 def test_conflicting_output_flags(tmp_path):
-    from miso_tpu.pipeline import RunConfig, compute_all_genes_psi
+    from miso_jax.pipeline import RunConfig, compute_all_genes_psi
 
     with pytest.raises(ValueError, match="conflict"):
         compute_all_genes_psi(
@@ -669,9 +669,9 @@ def test_fully_resumed_run_rebuilds_summary(tmp_path):
     its summary was lost) must still produce a complete summary."""
     import shutil
 
-    from miso_tpu.cli.index_gff import main as index_main
-    from miso_tpu.cli.main import main as miso_main
-    from miso_tpu.testing import build_catalog_fixture
+    from miso_jax.cli.index_gff import main as index_main
+    from miso_jax.cli.main import main as miso_main
+    from miso_jax.testing import build_catalog_fixture
 
     fix = build_catalog_fixture(str(tmp_path / "fix"), num_events=8,
                                 reads_per_event=150, seed=37)

@@ -1,5 +1,5 @@
-"""The north-star acceptance test: miso_tpu vs the reference C engine
-on the reference's own shipped test data (BASELINE.json criterion).
+"""The north-star acceptance test: miso_jax vs the reference C engine
+on the reference's own shipped test data (ROADMAP.md criterion).
 
 Four real heart BAMs + one SE event ship with the reference
 (misopy/sashimi_plot/test-data, installed by setup.py:128-153).  Both
@@ -37,8 +37,8 @@ pytestmark = pytest.mark.skipif(
 
 
 def _fetch_reads(sample):
-    from miso_tpu.io import sam as sam_io
-    from miso_tpu.io.gff import load_genes_from_gff
+    from miso_jax.io import sam as sam_io
+    from miso_jax.io.gff import load_genes_from_gff
 
     genes = load_genes_from_gff(EVENTS_GFF)
     (name, gene), = genes.items()
@@ -62,9 +62,9 @@ def ref_driver():
 def quantified(tmp_path_factory):
     """Both engines' posteriors for all four samples at the modern
     defaults (5000/500/10 x 6 chains), plus our written .miso files."""
-    from miso_tpu.io.index import index_gff
-    from miso_tpu.io.miso_file import load_miso_file
-    from miso_tpu.pipeline import RunConfig, compute_all_genes_psi
+    from miso_jax.io.index import index_gff
+    from miso_jax.io.miso_file import load_miso_file
+    from miso_jax.pipeline import RunConfig, compute_all_genes_psi
 
     root = tmp_path_factory.mktemp("refparity")
     idx = str(root / "index")
@@ -130,7 +130,7 @@ def test_psi_mean_parity(quantified, ref_results):
 
 
 def test_credible_interval_parity(quantified, ref_results):
-    from miso_tpu.stats.intervals import compute_credible_intervals
+    from miso_jax.stats.intervals import compute_credible_intervals
 
     for s in SAMPLES:
         lo_o, hi_o = compute_credible_intervals(
@@ -148,7 +148,7 @@ def test_bayes_factor_parity(quantified, ref_results):
     """WT-vs-KO Bayes factors from both engines' samples agree in sign
     and magnitude (within 10x; BFs span orders of magnitude).
     Ref: misopy/hypothesis_test.py:348-380 Savage-Dickey at delta=0."""
-    from miso_tpu.stats.bayes import compute_bayes_factors
+    from miso_jax.stats.bayes import compute_bayes_factors
 
     for wt, ko in [("heartWT1", "heartKOa"), ("heartWT2", "heartKOb")]:
         bf_ours = compute_bayes_factors(
@@ -176,7 +176,7 @@ def test_shipped_fixture_class_counts(quantified):
     match ours exactly -- same reads, same deterministic matching.  The
     old sampler dropped incompatible reads before the engine, so the
     (0,0) class is absent from its headers."""
-    from miso_tpu.io.miso_file import load_miso_file
+    from miso_jax.io.miso_file import load_miso_file
 
     for s in SAMPLES:
         ref = load_miso_file(os.path.join(
@@ -195,8 +195,8 @@ def test_shipped_fixture_posterior_drift(quantified):
     C engine's posterior (docs/PARITY.md has the full table).  Assert
     they still agree loosely and that CIs overlap -- a regression here
     would mean our ingest or model drifted, not just the sampler."""
-    from miso_tpu.io.miso_file import load_miso_file
-    from miso_tpu.stats.intervals import compute_credible_intervals
+    from miso_jax.io.miso_file import load_miso_file
+    from miso_jax.stats.intervals import compute_credible_intervals
 
     for s in SAMPLES:
         ref = load_miso_file(os.path.join(

@@ -41,11 +41,11 @@ def ref_driver():
 def quantified(tmp_path_factory):
     """Our full pipeline on the real BAM: index -> sam_to_bam ->
     compute_all_genes_psi -> .miso, plus the exact reads it consumed."""
-    from miso_tpu.io import sam as sam_io
-    from miso_tpu.io.gff import load_genes_from_gff
-    from miso_tpu.io.index import index_gff
-    from miso_tpu.io.miso_file import load_miso_file
-    from miso_tpu.pipeline import RunConfig, compute_all_genes_psi
+    from miso_jax.io import sam as sam_io
+    from miso_jax.io.gff import load_genes_from_gff
+    from miso_jax.io.index import index_gff
+    from miso_jax.io.miso_file import load_miso_file
+    from miso_jax.pipeline import RunConfig, compute_all_genes_psi
 
     root = tmp_path_factory.mktemp("atp2b1")
     idx = str(root / "index")
@@ -128,7 +128,7 @@ def test_atp2b1_psi_parity(quantified, ref_result, ref_perm):
 
 def test_atp2b1_ci_parity(quantified, ref_result, ref_perm):
     """Chen-Shao 95% credible intervals within tolerance."""
-    from miso_tpu.stats.intervals import compute_credible_intervals
+    from miso_jax.stats.intervals import compute_credible_intervals
 
     ref_col = ref_perm.index(0)
     ours = np.asarray(quantified["data"].samples)[:, 0]

@@ -34,7 +34,7 @@ def _gene_to_gff(gene, gid, path):
     heap corruption in the sampler) whenever an mRNA id sorts before
     its gene id -- the shipped event GFFs always use prefixed ids, so
     the quirk never fires there."""
-    from miso_tpu.io.gff import GFFRecord, write_gff
+    from miso_jax.io.gff import GFFRecord, write_gff
 
     lo, hi = gene.genomic_span()
     recs = [GFFRecord(gene.chrom or "chrS", "sim", "gene", lo, hi, None,
@@ -57,8 +57,8 @@ def _run_ours(ev, algorithm="reassign", chains=6, iters=5000, burn_in=500,
               lag=10, seed=5):
     import jax
 
-    from miso_tpu.core.events import pad_events
-    from miso_tpu.sampler.mcmc import EventBatch, SamplerConfig, run_batch
+    from miso_jax.core.events import pad_events
+    from miso_jax.sampler.mcmc import EventBatch, SamplerConfig, run_batch
 
     batch = EventBatch(**{k: np.asarray(v)
                           for k, v in pad_events([ev]).items()})
@@ -71,9 +71,9 @@ def _run_ours(ev, algorithm="reassign", chains=6, iters=5000, burn_in=500,
 def test_paired_end_parity(ref_driver, tmp_path):
     """Paired sampler vs splicing_miso_paired on identical mate pairs
     (fragment pmf from the same normalMean/normalVar/numDevs)."""
-    from miso_tpu.core.events import compile_paired_end
-    from miso_tpu.core.gene import make_gene
-    from miso_tpu.core.simulate import simulate_paired_reads
+    from miso_jax.core.events import compile_paired_end
+    from miso_jax.core.gene import make_gene
+    from miso_jax.core.simulate import simulate_paired_reads
 
     g = make_gene([300, 100, 300], [[1, 2, 3], [1, 3]], chrom="chrS",
                   strand="+")
@@ -96,9 +96,9 @@ def test_paired_end_parity(ref_driver, tmp_path):
 
 def test_three_isoform_parity(ref_driver, tmp_path):
     """Per-isoform posterior means agree on a 3-isoform gene."""
-    from miso_tpu.core.events import compile_single_end
-    from miso_tpu.core.gene import make_gene
-    from miso_tpu.core.simulate import simulate_reads
+    from miso_jax.core.events import compile_single_end
+    from miso_jax.core.gene import make_gene
+    from miso_jax.core.simulate import simulate_reads
 
     g = make_gene([100, 50, 80, 100],
                   [[1, 2, 3, 4], [1, 3, 4], [1, 4]], chrom="chrS",
@@ -120,9 +120,9 @@ def test_three_isoform_parity(ref_driver, tmp_path):
 def test_marginal_algorithm_parity(ref_driver, tmp_path):
     """MARGINAL (miso.c:807-815) vs the reference engine run with the
     same algorithm enum."""
-    from miso_tpu.core.events import compile_single_end
-    from miso_tpu.core.gene import make_gene
-    from miso_tpu.core.simulate import simulate_reads
+    from miso_jax.core.events import compile_single_end
+    from miso_jax.core.gene import make_gene
+    from miso_jax.core.simulate import simulate_reads
 
     g = make_gene([100, 50, 100], [[1, 2, 3], [1, 3]], chrom="chrS",
                   strand="+")
@@ -146,14 +146,14 @@ def test_classes_algorithm_documented_divergence(ref_driver, tmp_path):
     matrix is broken on ordinary SE events -- for this gene it emits
     only 2 position classes (no exclusion-only class at all), silently
     drops every exclusion-only read in getMatchVector, and its
-    posterior lands at ~0.30 for simulation truth 0.6.  miso_tpu's
+    posterior lands at ~0.30 for simulation truth 0.6.  miso_jax's
     CLASSES samples the documented model (position classes with
     per-isoform position weights) and agrees with its grid-exact
     posterior; this test PINS both facts so the divergence is a
     measured, documented decision rather than silent."""
-    from miso_tpu.core.events import compile_single_end
-    from miso_tpu.core.gene import make_gene
-    from miso_tpu.core.simulate import simulate_reads
+    from miso_jax.core.events import compile_single_end
+    from miso_jax.core.gene import make_gene
+    from miso_jax.core.simulate import simulate_reads
 
     g = make_gene([100, 50, 100], [[1, 2, 3], [1, 3]], chrom="chrS",
                   strand="+")
@@ -186,9 +186,9 @@ def test_overhang_filter_parity(ref_driver, tmp_path):
     """Overhang > 1 head-to-head: the first/last-CIGAR-run filter
     (solve.c:61) changes which junction reads count; both engines must
     agree on the resulting classes AND the posterior."""
-    from miso_tpu.core.events import compile_single_end
-    from miso_tpu.core.gene import make_gene
-    from miso_tpu.core.simulate import simulate_reads
+    from miso_jax.core.events import compile_single_end
+    from miso_jax.core.gene import make_gene
+    from miso_jax.core.simulate import simulate_reads
 
     g = make_gene([100, 50, 100], [[1, 2, 3], [1, 3]], chrom="chrS",
                   strand="+")
@@ -219,9 +219,9 @@ def test_paired_parity_grid(ref_driver, tmp_path, num_devs, mean, sd):
     """Paired-end head-to-head across the fragment-pmf grid: numDevs
     truncation (miso_paired.c:241-574 takes it as a parameter) and a
     second (mean, sd)."""
-    from miso_tpu.core.events import compile_paired_end
-    from miso_tpu.core.gene import make_gene
-    from miso_tpu.core.simulate import simulate_paired_reads
+    from miso_jax.core.events import compile_paired_end
+    from miso_jax.core.gene import make_gene
+    from miso_jax.core.simulate import simulate_paired_reads
 
     g = make_gene([300, 100, 300], [[1, 2, 3], [1, 3]], chrom="chrS",
                   strand="+")
@@ -244,9 +244,9 @@ def test_paired_parity_grid(ref_driver, tmp_path, num_devs, mean, sd):
 def test_five_isoform_parity(ref_driver, tmp_path):
     """Per-isoform posterior means agree on a 5-isoform gene (the
     deep-isoform end of the real-annotation range)."""
-    from miso_tpu.core.events import compile_single_end
-    from miso_tpu.core.gene import make_gene
-    from miso_tpu.core.simulate import simulate_reads
+    from miso_jax.core.events import compile_single_end
+    from miso_jax.core.gene import make_gene
+    from miso_jax.core.simulate import simulate_reads
 
     g = make_gene([120, 60, 80, 50, 90, 110],
                   [[1, 2, 3, 4, 5, 6], [1, 3, 4, 6], [1, 2, 4, 5, 6],
@@ -268,9 +268,9 @@ def test_low_coverage_boundary_parity(ref_driver, tmp_path):
     """A min_event_reads-boundary event (exactly 20 reads,
     settings.py:117 default): the wide low-coverage posterior must
     still match the reference engine's."""
-    from miso_tpu.core.events import compile_single_end
-    from miso_tpu.core.gene import make_gene
-    from miso_tpu.core.simulate import simulate_reads
+    from miso_jax.core.events import compile_single_end
+    from miso_jax.core.gene import make_gene
+    from miso_jax.core.simulate import simulate_reads
 
     g = make_gene([100, 50, 100], [[1, 2, 3], [1, 3]], chrom="chrS",
                   strand="+")
@@ -292,9 +292,9 @@ def test_psi_distribution_ks_parity(ref_driver, tmp_path):
     retained Psi samples must agree as DISTRIBUTIONS (two-sample KS
     statistic; thresholded on D, not p -- MCMC samples are
     autocorrelated so p-values would be anti-conservative)."""
-    from miso_tpu.core.events import compile_single_end
-    from miso_tpu.core.gene import make_gene
-    from miso_tpu.core.simulate import simulate_reads
+    from miso_jax.core.events import compile_single_end
+    from miso_jax.core.gene import make_gene
+    from miso_jax.core.simulate import simulate_reads
     from scipy.stats import ks_2samp
 
     g = make_gene([100, 50, 100], [[1, 2, 3], [1, 3]], chrom="chrS",

@@ -7,7 +7,7 @@ import pytest
 
 
 def test_malformed_gff_lines_skipped(tmp_path):
-    from miso_tpu.io.gff import load_genes_from_gff
+    from miso_jax.io.gff import load_genes_from_gff
     p = tmp_path / "bad.gff"
     p.write_text(
         "##gff-version 3\n"
@@ -21,7 +21,7 @@ def test_malformed_gff_lines_skipped(tmp_path):
 
 
 def test_gene_with_no_transcripts_skipped(tmp_path):
-    from miso_tpu.io.gff import load_genes_from_gff
+    from miso_jax.io.gff import load_genes_from_gff
     p = tmp_path / "empty.gff"
     p.write_text("chr1\tx\tgene\t1\t100\t.\t+\t.\tID=lonely\n")
     assert load_genes_from_gff(str(p)) == {}
@@ -30,14 +30,14 @@ def test_gene_with_no_transcripts_skipped(tmp_path):
 def test_empty_bam_run(tmp_path):
     """A catalog run against an alignment file with zero reads: every
     event skips, no output, no crash."""
-    from miso_tpu.cli.index_gff import main as index_main
-    from miso_tpu.cli.main import main as miso_main
-    from miso_tpu.io.sam import write_bam
-    from miso_tpu.testing import make_se_catalog
+    from miso_jax.cli.index_gff import main as index_main
+    from miso_jax.cli.main import main as miso_main
+    from miso_jax.io.sam import write_bam
+    from miso_jax.testing import make_se_catalog
 
     rng = np.random.default_rng(0)
     genes, records, _ = make_se_catalog(3, rng)
-    from miso_tpu.io.gff import write_gff
+    from miso_jax.io.gff import write_gff
     gff = str(tmp_path / "c.gff")
     write_gff(records, gff)
     bam = str(tmp_path / "empty.bam")
@@ -56,8 +56,8 @@ def test_empty_bam_run(tmp_path):
 
 
 def test_single_isoform_gene_skipped(tmp_path):
-    from miso_tpu.core.gene import make_gene
-    from miso_tpu.pipeline import RunConfig, compile_gene_event
+    from miso_jax.core.gene import make_gene
+    from miso_jax.pipeline import RunConfig, compile_gene_event
     g = make_gene([100], [[1]])
     cfg = RunConfig(read_len=20, min_event_reads=1)
     ev = compile_gene_event(g, "solo", ((10, 20), ("20M", "20M")), cfg)
@@ -65,8 +65,8 @@ def test_single_isoform_gene_skipped(tmp_path):
 
 
 def test_reads_on_unknown_chrom(tmp_path):
-    from miso_tpu.io.sam import AlignedRead, fetch_bam_reads_in_gene, write_bam
-    from miso_tpu.io.sam import BamReader
+    from miso_jax.io.sam import AlignedRead, fetch_bam_reads_in_gene, write_bam
+    from miso_jax.io.sam import BamReader
     bam = str(tmp_path / "odd.bam")
     write_bam(bam, ["chrZ"], [1000],
               [AlignedRead("r1", 0, "chrZ", 10, 255, "20M", 20)])
@@ -77,7 +77,7 @@ def test_reads_on_unknown_chrom(tmp_path):
 
 def test_unsorted_sam_to_bam(tmp_path):
     """sam_to_bam must coordinate-sort arbitrary input order."""
-    from miso_tpu.io.sam import BamReader, sam_to_bam
+    from miso_jax.io.sam import BamReader, sam_to_bam
     sam = tmp_path / "u.sam"
     sam.write_text(
         "@SQ\tSN:chr1\tLN:10000\n"
@@ -91,8 +91,8 @@ def test_unsorted_sam_to_bam(tmp_path):
 
 def test_zero_length_exon_annotation(tmp_path):
     """Degenerate exon (start == end, 1bp) must not break matching."""
-    from miso_tpu.core.gene import Exon, Gene, Isoform
-    from miso_tpu.core.matching import match_iso
+    from miso_jax.core.gene import Exon, Gene, Isoform
+    from miso_jax.core.matching import match_iso
     g = Gene(parts=[Exon(1, 100), Exon(150, 150), Exon(200, 300)],
              isoforms=[Isoform((0, 1, 2)), Isoform((0, 2))],
              chrom="chr1", strand="+")
@@ -103,9 +103,9 @@ def test_zero_length_exon_annotation(tmp_path):
 def test_overlapping_genes_catalog(tmp_path):
     """Two genes sharing coordinates: reads are fetched per gene span and
     each event quantifies independently."""
-    from miso_tpu.core.gene import make_gene
-    from miso_tpu.core.simulate import simulate_reads
-    from miso_tpu.pipeline import RunConfig, compile_gene_event, run_events
+    from miso_jax.core.gene import make_gene
+    from miso_jax.core.simulate import simulate_reads
+    from miso_jax.pipeline import RunConfig, compile_gene_event, run_events
     rng = np.random.default_rng(1)
     g1 = make_gene([100, 50, 100], [[1, 2, 3], [1, 3]])
     g2 = make_gene([120, 60, 120], [[1, 2, 3], [1, 3]])

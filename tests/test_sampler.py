@@ -4,10 +4,10 @@ import jax
 import numpy as np
 import pytest
 
-from miso_tpu.core.events import compile_paired_end, compile_single_end, pad_events
-from miso_tpu.core.gene import make_gene
-from miso_tpu.core.simulate import simulate_paired_reads, simulate_reads
-from miso_tpu.sampler.mcmc import EventBatch, SamplerConfig, run_batch
+from miso_jax.core.events import compile_paired_end, compile_single_end, pad_events
+from miso_jax.core.gene import make_gene
+from miso_jax.core.simulate import simulate_paired_reads, simulate_reads
+from miso_jax.sampler.mcmc import EventBatch, SamplerConfig, run_batch
 
 
 def _run(events, cfg, seed=0):

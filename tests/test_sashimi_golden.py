@@ -41,14 +41,14 @@ number_junctions = True
 
 @pytest.fixture(scope="module")
 def events_index(tmp_path_factory):
-    from miso_tpu.io.index import index_gff
+    from miso_jax.io.index import index_gff
     out = str(tmp_path_factory.mktemp("golden_index"))
     assert index_gff(EVENTS_GFF, out)
     return out
 
 
 def _render(events_index, tmp_path, extra=""):
-    from miso_tpu.plot.sashimi import plot_event
+    from miso_jax.plot.sashimi import plot_event
     p = tmp_path / "settings.txt"
     p.write_text(SETTINGS_TMPL
                  % (os.path.join(SASHIMI_DATA, "bam-data"), MISO_DATA,
@@ -60,9 +60,9 @@ def _render(events_index, tmp_path, extra=""):
 
 
 def _expected_junctions(sample):
-    from miso_tpu.io.gff import load_genes_from_gff
-    from miso_tpu.io.sam import fetch_bam_reads_in_gene, open_alignments
-    from miso_tpu.plot.sashimi import reads_to_wiggle
+    from miso_jax.io.gff import load_genes_from_gff
+    from miso_jax.io.sam import fetch_bam_reads_in_gene, open_alignments
+    from miso_jax.plot.sashimi import reads_to_wiggle
     genes = load_genes_from_gff(EVENTS_GFF)
     (_, gene), = genes.items()
     lo, hi = gene.genomic_span()
@@ -145,7 +145,7 @@ def test_structure_all_four_shipped_samples(events_index, tmp_path):
     import matplotlib.pyplot as plt
     from matplotlib.patches import PathPatch
 
-    from miso_tpu.plot.sashimi import plot_event
+    from miso_jax.plot.sashimi import plot_event
 
     samples = ["heartWT1", "heartWT2", "heartKOa", "heartKOb"]
     p = tmp_path / "settings4.txt"

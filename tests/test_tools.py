@@ -20,7 +20,7 @@ pytestmark = pytest.mark.skipif(
 
 
 def test_bam_reader_on_samtools_bam():
-    from miso_tpu.io.sam import BamReader
+    from miso_jax.io.sam import BamReader
     reader = BamReader(BAM)
     assert "chr17" in reader.references
     reads = list(reader)
@@ -35,7 +35,7 @@ def test_bam_reader_on_samtools_bam():
 
 
 def test_load_reference_produced_miso_file():
-    from miso_tpu.io.miso_file import MISOSamples, load_miso_file
+    from miso_jax.io.miso_file import MISOSamples, load_miso_file
     obj = MISOSamples(os.path.join(MISO_DATA, "heartWT1"))
     assert EVENT in obj.all_event_names
     data = obj.get_event_samples(EVENT)
@@ -44,13 +44,13 @@ def test_load_reference_produced_miso_file():
     assert np.all((data.samples >= 0) & (data.samples <= 1))
     # legacy-format header: no chrom/strand fields -> "NA" fallback
     # (samples_utils.py:214-228)
-    from miso_tpu.io.miso_file import get_gene_info_from_params
+    from miso_jax.io.miso_file import get_gene_info_from_params
     assert get_gene_info_from_params(data.params)["strand"] == "NA"
     assert data.params["counts"] == "(0,1):1,(1,0):21,(1,1):23"
 
 
 def test_summarize_reference_dir(tmp_path):
-    from miso_tpu.io.miso_file import summarize_sampler_results
+    from miso_jax.io.miso_file import summarize_sampler_results
     out = tmp_path / "wt1.miso_summary"
     n = summarize_sampler_results(os.path.join(MISO_DATA, "heartWT1"),
                                   str(out))
@@ -60,7 +60,7 @@ def test_summarize_reference_dir(tmp_path):
 
 
 def test_compare_reference_dirs(tmp_path):
-    from miso_tpu.io.comparison import output_samples_comparison
+    from miso_jax.io.comparison import output_samples_comparison
     path = output_samples_comparison(
         os.path.join(MISO_DATA, "heartWT1"),
         os.path.join(MISO_DATA, "heartKOa"),
@@ -96,14 +96,14 @@ show_posteriors = True
 
 @pytest.fixture(scope="module")
 def events_index(tmp_path_factory):
-    from miso_tpu.io.index import index_gff
+    from miso_jax.io.index import index_gff
     out = str(tmp_path_factory.mktemp("events_index"))
     assert index_gff(EVENTS_GFF, out)
     return out
 
 
 def test_sashimi_plot_event(events_index, sashimi_settings, tmp_path):
-    from miso_tpu.plot.sashimi import plot_event
+    from miso_jax.plot.sashimi import plot_event
     out = plot_event(EVENT, events_index, sashimi_settings, str(tmp_path))
     assert os.path.isfile(out) and os.path.getsize(out) > 5000
 
@@ -111,7 +111,7 @@ def test_sashimi_plot_event(events_index, sashimi_settings, tmp_path):
 def test_genome_transform_reverse():
     """Minus-strand axes run right-to-left; inverse() recovers genomic
     coordinates either way (plot_gene.py:366-391 getScaling)."""
-    from miso_tpu.plot.sashimi import GenomeTransform
+    from miso_jax.plot.sashimi import GenomeTransform
     exons = [(100, 199), (400, 499)]
     fwd = GenomeTransform(exons, 100, 499, intron_scale=30.0,
                           exon_scale=4.0, reverse=False)
@@ -128,7 +128,7 @@ def test_genome_transform_reverse():
 def test_sashimi_plot_event_option_paths(events_index, tmp_path,
                                          tmp_path_factory):
     """logged + bar_posteriors + fixed ymax + reverse_minus render path."""
-    from miso_tpu.plot.sashimi import plot_event
+    from miso_jax.plot.sashimi import plot_event
     d = tmp_path_factory.mktemp("sashimi_opts")
     p = d / "settings.txt"
     p.write_text("""\
@@ -155,8 +155,8 @@ sample_labels = ["WT", "KO"]
 
 
 def test_plot_bf_dist(tmp_path, sashimi_settings):
-    from miso_tpu.io.comparison import output_samples_comparison
-    from miso_tpu.plot.sashimi import plot_bf_dist
+    from miso_jax.io.comparison import output_samples_comparison
+    from miso_jax.plot.sashimi import plot_bf_dist
     bf = output_samples_comparison(
         os.path.join(MISO_DATA, "heartWT1"),
         os.path.join(MISO_DATA, "heartKOa"), str(tmp_path))
@@ -165,9 +165,9 @@ def test_plot_bf_dist(tmp_path, sashimi_settings):
 
 
 def test_const_exons(tmp_path):
-    from miso_tpu.cli.exon_utils import get_const_exons_by_gene
+    from miso_jax.cli.exon_utils import get_const_exons_by_gene
     out = get_const_exons_by_gene(ATP_GFF, str(tmp_path), min_size=0)
-    from miso_tpu.io.gff import read_gff
+    from miso_jax.io.gff import read_gff
     exons = read_gff(out)
     assert len(exons) > 0
     assert all(e.type == "exon" for e in exons)
@@ -175,8 +175,8 @@ def test_const_exons(tmp_path):
 
 
 def test_pe_utils_runs(tmp_path):
-    from miso_tpu.cli.exon_utils import get_const_exons_by_gene
-    from miso_tpu.cli.pe_utils import compute_insert_len
+    from miso_jax.cli.exon_utils import get_const_exons_by_gene
+    from miso_jax.cli.pe_utils import compute_insert_len
     const = get_const_exons_by_gene(EVENTS_GFF, str(tmp_path), min_size=0,
                                     all_constitutive=True)
     out = compute_insert_len(BAM, const, str(tmp_path), min_exon_size=10)
@@ -186,7 +186,7 @@ def test_pe_utils_runs(tmp_path):
 
 
 def test_insert_len_plot(tmp_path):
-    from miso_tpu.plot.sashimi import plot_insert_len
+    from miso_jax.plot.sashimi import plot_insert_len
     il = tmp_path / "test.insert_len"
     il.write_text("#mean=200.0,sdev=10.0,dispersion=0.7,num_pairs=4\n"
                   "chr1:1-500:+\t190,200,205,210\n")
@@ -198,8 +198,8 @@ def test_insert_len_plot(tmp_path):
 
 def test_miso_zip_roundtrip(tmp_path):
     import shutil
-    from miso_tpu.cli.zip import unzip_file, zip_dir
-    from miso_tpu.io.miso_file import MISOSamples
+    from miso_jax.cli.zip import unzip_file, zip_dir
+    from miso_jax.io.miso_file import MISOSamples
     src = os.path.join(MISO_DATA, "heartWT1")
     work = tmp_path / "wt1"
     shutil.copytree(src, work)
@@ -214,8 +214,8 @@ def test_miso_zip_roundtrip(tmp_path):
 
 
 def test_noise_simulator():
-    from miso_tpu.core.gene import make_gene
-    from miso_tpu.core.simulate import simulate_two_iso_reads_with_noise
+    from miso_jax.core.gene import make_gene
+    from miso_jax.core.simulate import simulate_two_iso_reads_with_noise
     g = make_gene([100, 50, 100], [[1, 2, 3], [1, 3]])
     rng = np.random.default_rng(0)
     iso, pos, cig = simulate_two_iso_reads_with_noise(
@@ -230,7 +230,7 @@ def test_noise_simulator():
 def test_rpkm_cli(tmp_path):
     """miso_rpkm --compute-rpkm over the sashimi fixture BAM.
     Parity: misopy/sam_rpkm.py:64+ (compute_rpkm)."""
-    from miso_tpu.cli.rpkm import main
+    from miso_jax.cli.rpkm import main
     rc = main(["--compute-rpkm", EVENTS_GFF, BAM, "--read-len", "36",
                "--output-dir", str(tmp_path)])
     assert rc == 0
@@ -245,8 +245,8 @@ def test_rpkm_cli(tmp_path):
 def test_run_events_analysis_check(tmp_path):
     """run_events_analysis.py --check runs the GFF/BAM sanity scan.
     Parity: misopy/run_events_analysis.py:74-194 (check_gff_and_bam)."""
-    from miso_tpu.cli.index_gff import main as index_main
-    from miso_tpu.cli.run_events_analysis import main
+    from miso_jax.cli.index_gff import main as index_main
+    from miso_jax.cli.run_events_analysis import main
     idx = str(tmp_path / "index")
     assert index_main(["--index", EVENTS_GFF, idx]) == 0
     assert main(["--check", idx, BAM]) == 0
@@ -257,15 +257,15 @@ def test_run_events_analysis_check(tmp_path):
 def test_module_availability_cli():
     """Dependency probe exits 0 with the baked-in stack.
     Parity: misopy/module_availability.py:11-56."""
-    from miso_tpu.cli.module_availability import main
+    from miso_jax.cli.module_availability import main
     assert main([]) == 0
 
 
 def test_sam_to_bam_roundtrip(tmp_path):
     """sam_to_bam --convert produces a sorted BAM our reader accepts.
     Parity: misopy/sam_to_bam.py:8-42."""
-    from miso_tpu.cli.sam_to_bam import main
-    from miso_tpu.io.sam import BamReader
+    from miso_jax.cli.sam_to_bam import main
+    from miso_jax.io.sam import BamReader
     sam = "/root/reference/misopy/test-data/sam-data/c2c12.Atp2b1.sam"
     out = str(tmp_path / "bams")
     assert main(["--convert", sam, out]) == 0
@@ -283,7 +283,7 @@ def test_read_gff_v2_dialect(tmp_path):
     """##gff-version 2 files parse tag-value attributes (quoted and
     bare) and GTF-style records build the gene hierarchy
     (gff_utils.py:687-709,752-810)."""
-    from miso_tpu.io.gff import load_genes_from_gff, parse_v2_attributes
+    from miso_jax.io.gff import load_genes_from_gff, parse_v2_attributes
     attrs = parse_v2_attributes(
         'gene_id "g1"; note value1 "free text" ; empty ; # trailing')
     assert attrs["gene_id"] == ["g1"]
@@ -306,7 +306,7 @@ def test_read_gff_v2_dialect(tmp_path):
 def test_read_gff_v1_dialect(tmp_path):
     """##gff-version 1 rows carry the free-text group column
     (gff_utils.py:664-685)."""
-    from miso_tpu.io.gff import read_gff
+    from miso_jax.io.gff import read_gff
     p = tmp_path / "v1.gff"
     p.write_text(
         "##gff-version 1\n"
@@ -322,7 +322,7 @@ def test_read_gff_v1_dialect(tmp_path):
 def test_write_gff_dialect_roundtrip(tmp_path):
     """Writer emits v1/v2/GTF dialects that the Reader round-trips
     (gff_utils.py:846-953)."""
-    from miso_tpu.io.gff import GFFRecord, read_gff, write_gff
+    from miso_jax.io.gff import GFFRecord, read_gff, write_gff
     rec = GFFRecord("chr1", "src", "exon", 100, 199, 0.5, "+", None,
                     {"gene_id": ["g1"], "transcript_id": ["t1"]})
     for version in ("2", "gtf"):
@@ -344,7 +344,7 @@ def test_format_sample_block_edge_cases():
     """Near-zero negative scores keep their '-0.00' sign, and an empty
     sample block formats to empty bytes instead of crashing."""
     import numpy as np
-    from miso_tpu.io.miso_file import _format_sample_block
+    from miso_jax.io.miso_file import _format_sample_block
 
     got = _format_sample_block(np.array([[0.25, 0.75]]),
                                np.array([-0.004]))
@@ -360,7 +360,7 @@ def test_text_sam_scale_warning(tmp_path, monkeypatch):
     converts via sam_to_bam first, sam_to_bam.py:32-60)."""
     import warnings
 
-    from miso_tpu.io import sam as sam_io
+    from miso_jax.io import sam as sam_io
 
     p = tmp_path / "big.sam"
     p.write_text("@SQ\tSN:chr1\tLN:1000\n"
@@ -385,8 +385,8 @@ def test_native_format_quantized_matches_numpy():
     0/10000 tick extremes)."""
     import numpy as np
 
-    from miso_tpu import native
-    from miso_tpu.io import miso_file
+    from miso_jax import native
+    from miso_jax.io import miso_file
 
     if native.load() is None:
         import pytest
@@ -419,8 +419,8 @@ def test_native_parse_samples_matches_python():
     Python .miso parser, and malformed/ragged bodies must fall back."""
     import numpy as np
 
-    from miso_tpu import native
-    from miso_tpu.io import miso_file
+    from miso_jax import native
+    from miso_jax.io import miso_file
 
     if native.load() is None:
         import pytest
@@ -467,7 +467,7 @@ def test_exon_index_matches_bruteforce():
     on random (overlapping, nested) exon sets."""
     import numpy as np
 
-    from miso_tpu.cli.pe_utils import _ExonIndex
+    from miso_jax.cli.pe_utils import _ExonIndex
 
     class E:
         def __init__(self, seqid, start, end, strand="+"):
@@ -496,9 +496,9 @@ def test_rpkm_scan_path_matches_fallback(tmp_path):
     per-read fallback path."""
     import shutil
 
-    import miso_tpu.cli.rpkm as R
-    import miso_tpu.io.sam as S
-    from miso_tpu.testing import build_catalog_fixture
+    import miso_jax.cli.rpkm as R
+    import miso_jax.io.sam as S
+    from miso_jax.testing import build_catalog_fixture
 
     fix = build_catalog_fixture(str(tmp_path / "fix"), num_events=40,
                                 reads_per_event=120, seed=44)
